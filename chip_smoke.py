@@ -7,12 +7,15 @@ Phases (any mismatch or exception ends the run with a non-zero code):
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles the CUDA kernels from eventql_tpu_torch/kernels/csrc;
   3. kernels: every kernel wrapper against its plain PyTorch version on
-     the card, exact equality (integer sums: tolerance 0);
-  4. main path: SQL text -> Runtime(device="cuda") -> ResultList on a
-     partition-sized table (2^26 rows, ~1.2 GB on the device); every
-     query's rows equal an independent numpy answer and, on a 2^20-row
-     prefix, the port's own host engine; route and launch counters rose;
-  5. the main path's shapes: every kernel call the queries of phase 4
+     the card, exact equality (integer sums and row indices: tolerance 0);
+  4. main paths: SQL text -> Runtime(device="cuda") -> ResultList on a
+     partition-sized table (2^26 rows, ~1.9 GB on the device): first the
+     GROUP BY sum/count queries, then the ORDER BY [LIMIT] queries, each
+     path with the launch counts set to 0 just before it and read just
+     after. Every query's rows equal an independent numpy answer and, on
+     a 2^20-row prefix, the port's own host engine; route and launch
+     counters rose as they must;
+  5. the main paths' shapes: every kernel call the queries of phase 4
      made is repeated on the same tensors through the wrapper and the
      plain version, which must be equal (tolerance 0); then CUDA-event
      times of both beside the bound and a library call, and the warm
@@ -41,7 +44,9 @@ from eventql_tpu_torch.exec.runtime import (
     Runtime,
 )
 from eventql_tpu_torch.kernels import _build
+from eventql_tpu_torch.kernels import extract as ex
 from eventql_tpu_torch.kernels import groupby_agg as ga
+from eventql_tpu_torch.kernels import sort as ksort
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
 # the float32 rate outside the tensor cores, taken as the rate of the
@@ -57,6 +62,8 @@ N_KEYS = 1024
 BIG_BASE = 20_000_000
 BIG_SPAN = 100_000
 CAT_LO, CAT_HI = -40, 60
+FAST_TOPK_ROWS = 1 << 22  # from here on a single-key top-k takes the histograms
+I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
 
 
 def log(msg):
@@ -161,18 +168,93 @@ def kernel_cases(n, device, rng):
         stream_bits=[16, 32], streams_unsigned=[True, False])
 
 
-_WRAPPERS = {
-    "groupby_agg": (ga.groupby_agg, ga.groupby_agg_plain),
-    "groupby_multi_agg": (ga.groupby_multi_agg, ga.groupby_multi_agg_plain),
+def extract_cases(n, rng):
+    """Yield (label, values int32[n], threshold, cap, rows or None) for
+    extract_ge: the corners of the compaction (no match, the ragged
+    tail, the cap, the int32 ends)."""
+    base = rng.integers(0, 1000, n).astype(np.int32)
+
+    def planted(rows, value=9000):
+        v = base.copy()
+        v[rows] = value
+        return v
+
+    tail = np.arange(n - (n % 4096 or 1), n)
+    yield "no match", base, 5000, 64, None
+    yield "one match in the last row", planted([n - 1]), 5000, 64, None
+    yield "matches only in the ragged tail", planted(tail), 5000, len(tail) + 7, None
+    some = rng.choice(n, size=min(300, n), replace=False)
+    yield "exactly cap matches", planted(some), 5000, len(some), None
+    many = rng.choice(n, size=min(1000, n), replace=False)
+    yield "more than cap matches", planted(many), 5000, max(1, len(many) // 3), None
+    yield "every row a match", base, 0, min(n, 4096), None
+    yield "cap = 1", planted(many), 5000, 1, None
+    yield "half the rows, cap = n", base, 500, n, None
+    signed = rng.integers(I32_MIN, I32_MAX, n, dtype=np.int64).astype(np.int32)
+    yield "threshold INT32_MIN", signed, I32_MIN, min(n, 100), None
+    yield "threshold INT32_MAX", planted(some, I32_MAX), I32_MAX, len(some) + 5, None
+    yield "n below the stream's length", planted(many), 5000, 2000, n - n // 3
+
+
+class _Kernel:
+    """One wrapper of the port: where it lives, its plain version, and
+    the module that counts its launches."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.wrapper = getattr(module, name)
+        self.plain = getattr(module, name + "_plain")
+
+    @property
+    def launches(self):
+        return self.module.LAUNCHES[self.name]
+
+
+_KERNELS = {
+    "groupby_agg": _Kernel(ga, "groupby_agg"),
+    "groupby_multi_agg": _Kernel(ga, "groupby_multi_agg"),
+    "extract_ge": _Kernel(ex, "extract_ge"),
 }
+
+
+def launch_counts():
+    return {name: k.launches for name, k in _KERNELS.items()}
+
+
+def zero_launch_counts():
+    for k in _KERNELS.values():
+        k.module.LAUNCHES[k.name] = 0
+
+
+def check_extract(label, got, want, values, threshold, cap, rows):
+    """extract_ge against its plain version, and the contract itself:
+    ascending row indices of matches, then -1."""
+    check(got.dtype == torch.int32 and got.shape == (cap,),
+          f"extract_ge [{label}]: shape/dtype")
+    check(torch.equal(got, want),
+          f"extract_ge [{label}]: kernel and plain version disagree")
+    rows = values.shape[0] if rows is None else rows
+    total = int((values[:rows] >= threshold).sum())
+    kept = min(total, cap)
+    check(bool((got[kept:] == -1).all()) and bool((got[:kept] >= 0).all()),
+          f"extract_ge [{label}]: {kept} matches expected before the -1 padding")
+    return kept
 
 
 def phase_kernels(device, n):
     """The case grid: options and widths the main path may not reach."""
     rng = np.random.default_rng(7)
     cases = 0
+    for label, values, threshold, cap, rows in extract_cases(n, rng):
+        v = dev_tensor(values, device)
+        got = ex.extract_ge(v, threshold, cap, rows)
+        want = ex.extract_ge_plain(v, threshold, cap, rows)
+        torch.cuda.synchronize()
+        kept = check_extract(label, got, want, v, threshold, cap, rows)
+        check((kept > 0) == (label != "no match"), f"extract_ge [{label}]: vacuous")
+        cases += 1
     for name, label, kw in kernel_cases(n, device, rng):
-        wrapper, plain = _WRAPPERS[name]
+        wrapper, plain = _KERNELS[name].wrapper, _KERNELS[name].plain
         got = wrapper(**kw)
         want = plain(**kw)
         torch.cuda.synchronize()
@@ -186,43 +268,42 @@ def phase_kernels(device, n):
         else:
             check(int(got[0].sum()) > 0, f"{name} [{label}]: nothing counted")
         cases += 1
-    for name in _WRAPPERS:
-        check(ga.LAUNCHES[name] > 0, f"{name}: no kernel launch in phase 3")
+    for name, count in launch_counts().items():
+        check(count > 0, f"{name}: no kernel launch in phase 3")
     log(f"phase 3: {cases} kernel cases equal to their plain versions"
         f" (n = {n}, tolerance 0)")
 
 
-# -- phase 4: the main path ---------------------------------------------------
+# -- phase 4: the main paths --------------------------------------------------
+
+COLUMNS = [("k", SType.STRING), ("v", SType.UINT64), ("w", SType.UINT64),
+           ("cat", SType.INT64), ("big", SType.UINT64), ("ts", SType.UINT64)]
 
 
 def make_table(n, seed):
     """The sql_groupby deployment of the JAX package's bench at
     partition size: a dictionary-encoded string key plus numeric
-    columns that narrow to 16 and 32 bits."""
+    columns that narrow to 16 and 32 bits; and the sort column of its
+    sql_topk deployment, a full-range 64-bit timestamp."""
     rng = np.random.default_rng(seed)
-    ones = np.ones(n, bool)
     cols = {
         "k": rng.integers(0, N_KEYS, n).astype(np.int32),
         "v": rng.integers(0, 1000, n).astype(np.uint64),
         "w": rng.integers(0, 1 << 20, n).astype(np.uint64),
         "cat": rng.integers(CAT_LO, CAT_HI, n).astype(np.int64),
         "big": (rng.integers(0, BIG_SPAN, n) + BIG_BASE).astype(np.uint64),
+        "ts": rng.integers(0, 1 << 63, n, dtype=np.uint64),
     }
     dictionary = np.array([b"k%05d" % i for i in range(N_KEYS)], dtype=object)
-    return cols, dictionary, ones
+    return cols, dictionary
 
 
 def provider_of(cols, dictionary, n):
     ones = np.ones(n, bool)
     rel = relation_from_numpy(
-        ["k", "v", "w", "cat", "big"],
-        [
-            (SType.STRING, cols["k"][:n], ones, dictionary),
-            (SType.UINT64, cols["v"][:n], ones, None),
-            (SType.UINT64, cols["w"][:n], ones, None),
-            (SType.INT64, cols["cat"][:n], ones, None),
-            (SType.UINT64, cols["big"][:n], ones, None),
-        ],
+        [name for name, _st in COLUMNS],
+        [(st, cols[name][:n], ones, dictionary if st == SType.STRING else None)
+         for name, st in COLUMNS],
     )
     p = RelationTableProvider()
     p.add_table("t", rel)
@@ -293,6 +374,61 @@ def queries(c, dictionary):
     return out
 
 
+def _first_rows(keys, keep, w):
+    """Independent answer of ORDER BY ... LIMIT: the first ``w`` rows in
+    the ascending lexicographic order of ``keys`` (most significant
+    first; ties to the lower row index) among the rows ``keep`` selects.
+    A partition finds the w-th smallest leading key, and only the rows
+    up to it (all its ties included) are sorted."""
+    rows = np.arange(len(keys[0])) if keep is None else np.nonzero(keep)[0]
+    lead = keys[0][rows]
+    if 0 < w < len(rows):
+        rows = rows[lead <= np.partition(lead, w - 1)[w - 1]]
+    order = np.lexsort([key[rows] for key in reversed(keys)])  # stable
+    return rows[order][:w]
+
+
+def order_queries(c, dictionary, n):
+    """(name, sql, route, fast-path?, launches per run, expected rows in
+    order). ``fast-path`` marks a single-key top-k, which takes the two
+    histograms once the table has FAST_TOPK_ROWS rows; the heavy-tie
+    query overflows the candidate cap there and never extracts."""
+    names = [d.decode() for d in dictionary]
+    k, v, w, ts = c["k"][:n], c["v"][:n], c["w"][:n], c["ts"][:n]
+    fast = n >= FAST_TOPK_ROWS
+    hist = {"groupby_agg": 2 if fast else 0}
+    none = {}
+
+    def rows(idx, *cols):
+        return [[names[int(x[i])] if x is k else str(int(x[i])) for x in cols]
+                for i in idx]
+
+    ts_desc = ~ts  # the unsigned complement reverses the order
+    out = []
+    out.append(("topk_ts_desc",
+                "select ts, v from t order by ts desc limit 100;",
+                "topk", dict(hist, extract_ge=1 if fast else 0),
+                rows(_first_rows([ts_desc], None, 100), ts, v)))
+    out.append(("topk_ts_asc_where_offset",
+                "select ts, v from t where v < 800 order by ts limit 10 offset 5;",
+                "topk", dict(hist, extract_ge=1 if fast else 0),
+                rows(_first_rows([ts], v < 800, 15)[5:], ts, v)))
+    out.append(("topk_v_desc_ties",
+                "select ts, v from t order by v desc limit 100;",
+                "topk", hist,
+                rows(_first_rows([np.uint64(999) - v], None, 100), ts, v)))
+    out.append(("topk_string_then_ts_desc",
+                "select k, ts from t order by k, ts desc limit 50;",
+                "topk", none,
+                rows(_first_rows([k, ts_desc], None, 50), k, ts)))
+    keep = (v < 10) & (w < 65536)  # 1 row in 1600: the host emits every kept row
+    out.append(("order_ts_where",
+                "select ts, v from t where v < 10 and w < 65536 order by ts;",
+                "order", none,
+                rows(_first_rows([ts], keep, int(keep.sum())), ts, v)))
+    return out
+
+
 def run_query(rt, provider, sql):
     txn = rt.new_transaction(provider)
     return rt.build_query_plan(txn, sql).execute(0)
@@ -301,19 +437,19 @@ def run_query(rt, provider, sql):
 class _RecordedCalls:
     """While active, the kernel wrappers of the port keep a record of
     the keyword form of each call and then run as they are, so that
-    phase 5 can repeat exactly what the route asked of each kernel."""
+    phase 5 can repeat exactly what the routes asked of each kernel."""
 
     def __init__(self):
         self.calls = []
 
     def __enter__(self):
-        for name, (wrapper, _plain) in _WRAPPERS.items():
-            setattr(ga, name, self._recording(name, wrapper))
+        for name, k in _KERNELS.items():
+            setattr(k.module, name, self._recording(name, k.wrapper))
         return self
 
     def __exit__(self, *exc):
-        for name, (wrapper, _plain) in _WRAPPERS.items():
-            setattr(ga, name, wrapper)
+        for name, k in _KERNELS.items():
+            setattr(k.module, name, k.wrapper)
 
     def _recording(self, name, wrapper):
         sig = inspect.signature(wrapper)
@@ -325,40 +461,43 @@ class _RecordedCalls:
         return call
 
 
-def phase_main_path(device, n, n_prefix, reps):
-    t0 = time.perf_counter()
-    cols, dictionary, _ = make_table(n, seed=42)
-    full = provider_of(cols, dictionary, n)
-    prefix = provider_of(cols, dictionary, n_prefix)
-    qs = queries(cols, dictionary)
-    log(f"phase 4: table of {n} rows and expected answers made in"
-        f" {time.perf_counter() - t0:.1f} s")
+def _timed_runs(rt, provider, sql, reps):
+    """Run the query ``reps`` times; returns the last ResultList, the
+    wall times (each ends in a synchronise), the number of kernel calls
+    in all runs and the recorded calls of the last run (earlier records
+    are dropped at once: they would keep every run's tensors alive)."""
+    times, n_calls = [], 0
+    with _RecordedCalls() as rec:
+        for _ in range(reps):
+            rec.calls.clear()
+            t = time.perf_counter()
+            res = run_query(rt, provider, sql)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t) * 1e3)
+            n_calls += len(rec.calls)
+    return res, times, n_calls, rec.calls
 
-    rt = Runtime(plan_cache=PlanCache(), device=device)
-    host_rt = Runtime(device=None)
 
-    for name in ga.LAUNCHES:
-        ga.LAUNCHES[name] = 0
+def _e2e(times, **more):
+    # warm = every run after the first (columns on the card, plan cached)
+    return dict(first_ms=times[0], warm_ms_median=statistics.median(times[1:]),
+                warm_ms_min=min(times[1:]), **more)
+
+
+def groupby_path(rt, full, qs, reps):
+    """The GROUP BY sum/count path at full size. Returns (e2e, launches
+    per query, the last run's kernel call per query)."""
     fused0 = device_exec.FUSED_GROUPBY_COUNT
     multi0 = device_exec.MULTI_SUM_GROUPBY_COUNT
-    e2e = {}
-    launches_by_query = {}
-    calls = {}
+    e2e, launches_by_query, calls = {}, {}, {}
     for name, sql, kernel, fused, expected in qs:
-        before = dict(ga.LAUNCHES)
+        before = launch_counts()
         f_before = device_exec.FUSED_GROUPBY_COUNT
         m_before = device_exec.MULTI_SUM_GROUPBY_COUNT
-        times = []
-        with _RecordedCalls() as rec:
-            for _ in range(reps):
-                t = time.perf_counter()
-                res = run_query(rt, full, sql)
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t) * 1e3)
-        check(len(rec.calls) == reps and rec.calls[-1][0] == kernel,
+        res, times, n_calls, recorded = _timed_runs(rt, full, sql, reps)
+        check(n_calls == reps and [c[0] for c in recorded] == [kernel],
               f"{name}: expected {reps} calls of {kernel}")
-        calls[name] = rec.calls[-1]
-        del rec
+        calls[name] = recorded[0]
         got = sorted(res.rows)
         check(len(got) == len(expected),
               f"{name}: {len(got)} groups, expected {len(expected)}")
@@ -367,43 +506,117 @@ def phase_main_path(device, n, n_prefix, reps):
               f"{name}: fused route counter")
         check(device_exec.MULTI_SUM_GROUPBY_COUNT - m_before
               == (0 if fused else reps), f"{name}: multi-sum route counter")
-        delta = {k: ga.LAUNCHES[k] - before[k] for k in ga.LAUNCHES}
+        after = launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
         check(delta[kernel] == reps and sum(delta.values()) == reps,
               f"{name}: expected {reps} launches of {kernel}, got {delta}")
-        launches_by_query[name] = delta[kernel] // reps
-        # warm = every run after the first (columns on the card, plan cached)
-        e2e[name] = {"first_ms": times[0],
-                     "warm_ms_median": statistics.median(times[1:]),
-                     "warm_ms_min": min(times[1:]), "groups": len(got)}
-    launches = dict(ga.LAUNCHES)
+        launches_by_query[name] = {kernel: delta[kernel] // reps}
+        e2e[name] = _e2e(times, groups=len(got))
     check(device_exec.FUSED_GROUPBY_COUNT > fused0, "fused route never taken")
     check(device_exec.MULTI_SUM_GROUPBY_COUNT > multi0, "multi-sum route never taken")
-    for name in launches:
-        check(launches[name] > 0, f"{name}: not launched on the main path")
+    return e2e, launches_by_query, calls
+
+
+def order_path(rt, full, qs, reps):
+    """The ORDER BY [LIMIT] path at full size: rows AND their order must
+    equal the numpy answer. Returns (e2e, launches per query, the last
+    run's kernel calls per query)."""
+    e2e, launches_by_query, calls = {}, {}, {}
+    for name, sql, route, per_run, expected in qs:
+        before = launch_counts()
+        topk0, order0 = device_exec.SCAN_TOPK_COUNT, device_exec.SCAN_ORDER_COUNT
+        reads0 = ksort.READBACKS
+        res, times, n_calls, recorded = _timed_runs(rt, full, sql, reps)
+        got = res.rows
+        check(len(got) == len(expected),
+              f"{name}: {len(got)} rows, expected {len(expected)}")
+        check(got == expected, f"{name}: rows or their order differ from the"
+              " numpy answer")
+        check(device_exec.SCAN_TOPK_COUNT - topk0 == (reps if route == "topk" else 0)
+              and device_exec.SCAN_ORDER_COUNT - order0
+              == (reps if route == "order" else 0), f"{name}: route counters")
+        after = launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        want = {k: reps * per_run.get(k, 0) for k in after}
+        check(delta == want, f"{name}: launches {delta}, expected {want}")
+        check(n_calls == reps * sum(per_run.values())
+              and len(recorded) == sum(per_run.values()), f"{name}: recorded calls")
+        calls[name] = recorded
+        launches_by_query[name] = {k: c for k, c in per_run.items() if c}
+        e2e[name] = _e2e(times, rows=len(got),
+                         readbacks=(ksort.READBACKS - reads0) // reps)
+    return e2e, launches_by_query, calls
+
+
+def phase_main_path(device, n, n_prefix, reps):
+    """Both paths of the port at ``n`` rows, then both on the prefix
+    against the host engine. Returns a dict: launches (per kernel, the
+    paths' counts added), launches_by_path, per_query, e2e, calls
+    (query -> list of (kernel, kwargs)), resident bytes."""
+    t0 = time.perf_counter()
+    cols, dictionary = make_table(n, seed=42)
+    full = provider_of(cols, dictionary, n)
+    prefix = provider_of(cols, dictionary, n_prefix)
+    gqs = queries(cols, dictionary)
+    oqs = order_queries(cols, dictionary, n)
+    log(f"phase 4: table of {n} rows and expected answers made in"
+        f" {time.perf_counter() - t0:.1f} s")
+
+    rt = Runtime(plan_cache=PlanCache(), device=device)
+    host_rt = Runtime(device=None)
+
+    zero_launch_counts()
+    g_e2e, g_per_query, g_calls = groupby_path(rt, full, gqs, reps)
+    g_launches = launch_counts()
+    for name in ("groupby_agg", "groupby_multi_agg"):
+        check(g_launches[name] > 0, f"{name}: not launched on the GROUP BY path")
+    log(f"phase 4: {len(gqs)} GROUP BY queries x {reps} equal to numpy at {n}"
+        f" rows; launches {g_launches}")
+
+    zero_launch_counts()
+    o_e2e, o_per_query, o_calls = order_path(rt, full, oqs, reps)
+    o_launches = launch_counts()
+    if n >= FAST_TOPK_ROWS:
+        for name in ("groupby_agg", "extract_ge"):
+            check(o_launches[name] > 0, f"{name}: not launched on the ORDER BY path")
+    log(f"phase 4: {len(oqs)} ORDER BY queries x {reps} equal to numpy at {n}"
+        f" rows, in order; launches {o_launches}")
+
     # bytes of the table's columns as the column cache holds them
     resident = sum(
         t.numel() * t.element_size()
         for c in full.get_table_data("t").columns
         for t in c._device_cache[str(device)]
     )
-    check(resident > n * 12, "the table is not resident on the device")
-    log(f"phase 4: {len(qs)} queries x {reps} equal to numpy at {n} rows;"
-        f" launches {launches}; device memory held {resident} bytes")
+    check(resident > n * 20, "the table is not resident on the device")
+    log(f"phase 4: device memory held {resident} bytes")
 
-    # the same queries on a prefix: device route against the host engine
-    for name, sql, _kernel, _fused, _expected in qs:
+    # the same queries on a prefix: device routes against the host engine
+    for name, sql, *_rest in gqs:
         a = sorted(run_query(rt, prefix, sql).rows)
         b = sorted(run_query(host_rt, prefix, sql).rows)
         check(a == b and len(a) > 0,
               f"{name}: device route and host engine differ on the prefix")
-    log(f"phase 4: {len(qs)} queries equal to the host engine at"
+    for name, sql, *_rest in oqs:
+        a = run_query(rt, prefix, sql).rows
+        b = run_query(host_rt, prefix, sql).rows
+        check(a == b and len(a) > 0,
+              f"{name}: device route and host engine differ on the prefix")
+    log(f"phase 4: {len(gqs) + len(oqs)} queries equal to the host engine at"
         f" {n_prefix} rows")
-    # the counts as read after the full-size queries: the prefix runs
-    # above and phase 5 launch too, and are not the main path
-    return launches, launches_by_query, e2e, calls, resident
+    # the counts as read after each path's full-size queries: the prefix
+    # runs above and phase 5 launch too, and are not the main path
+    return dict(
+        launches={k: g_launches[k] + o_launches[k] for k in g_launches},
+        launches_by_path={"group_by": g_launches, "order_by": o_launches},
+        per_query={**g_per_query, **o_per_query},
+        e2e={**g_e2e, **o_e2e},
+        calls={**{q: [c] for q, c in g_calls.items()}, **o_calls},
+        resident=resident,
+    )
 
 
-# -- phase 5: the main path's shapes, checked and timed ------------------------
+# -- phase 5: the main paths' shapes, checked and timed -------------------------
 
 
 def cuda_ms(fn, iters, warmup=2):
@@ -435,6 +648,14 @@ def _streams_of(kw):
     return out
 
 
+def _bound(nbytes, nops, shape):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = nops / ALU_OPS_PER_S * 1e3
+    return dict(bytes=nbytes, ops=nops, bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                shape=shape)
+
+
 def bound_of(kw):
     """Least time for the call: every stream read once at its stored
     width and the tables written once, over the memory rate; against
@@ -444,19 +665,15 @@ def bound_of(kw):
     tables = 1 + len(kw.get("streams", ())) + (kw.get("values") is not None)
     nbytes = n * sum(t.element_size() for _r, t in streams) + tables * K * 8
     nops = n * (2 + len(kw.get("preds", ())) + ("mask" in dict(streams)) + tables)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / ALU_OPS_PER_S * 1e3
     shape = f"n={n} K={K} " + " ".join(
         f"{r}={str(t.dtype).split('.')[-1]}" for r, t in streams)
-    return dict(bytes=nbytes, ops=nops, bound_ms=max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
-                shape=shape)
+    return _bound(nbytes, nops, shape)
 
 
 def check_and_time(kernel, label, kw, iters):
     """Hold the wrapper against the plain version on exactly these
     arguments (tolerance 0), then time both."""
-    wrapper, plain = _WRAPPERS[kernel]
+    wrapper, plain = _KERNELS[kernel].wrapper, _KERNELS[kernel].plain
     got, want = wrapper(**kw), plain(**kw)
     torch.cuda.synchronize()
     check(got.shape == want.shape and got.dtype == want.dtype,
@@ -474,23 +691,88 @@ def check_and_time(kernel, label, kw, iters):
     return out
 
 
-def phase_times(device, calls):
-    """Every call the main path made (one per query, as recorded in
-    phase 4: the same tensors, sizes and options) goes through its
-    wrapper and its plain version once more; the results must be equal,
-    and only then are both timed. ``calls`` maps query name to
-    (kernel name, keyword arguments)."""
-    headline_of = {"groupby_agg": "headline", "groupby_multi_agg": "multi_sum"}
-    out = {name: {"other_shapes": {}} for name in _WRAPPERS}
-    for query, (kernel, kw) in calls.items():
-        head = headline_of[kernel] == query
-        res = check_and_time(kernel, query, kw, 20 if head else 5)
-        if head:
-            out[kernel].update(res)
-        else:
-            out[kernel]["other_shapes"][query] = res
+def check_and_time_extract(label, kw, iters):
+    """extract_ge on a recorded call: equal to the plain version
+    (tolerance 0), then timed beside torch.nonzero, the one library call
+    that compacts (it returns every match as int64 and is not capped)."""
+    values, threshold, cap = kw["values"], kw["threshold"], kw["cap"]
+    rows = kw.get("n")
+    got = ex.extract_ge(values, threshold, cap, rows)
+    want = ex.extract_ge_plain(values, threshold, cap, rows)
+    torch.cuda.synchronize()
+    kept = check_extract(label, got, want, values, threshold, cap, rows)
+    check(kept > 0, f"extract_ge [{label}]: no candidate on the main path")
+    err = int((got - want).abs().max())
+    del got, want
+    n = values.shape[0] if rows is None else rows
+    out = dict(
+        max_abs_err=float(err), candidates=kept,
+        ms=cuda_ms(lambda: ex.extract_ge(values, threshold, cap, rows), iters),
+        plain_ms=cuda_ms(
+            lambda: ex.extract_ge_plain(values, threshold, cap, rows), 5, warmup=1),
+        library_ms=cuda_ms(
+            lambda: torch.nonzero(values[:n] >= threshold), 5, warmup=1),
+        library="torch.nonzero(values >= threshold) (int64 indices, no cap)",
+    )
+    # the values read once, the cap indices written once; one compare a row
+    out.update(_bound(4 * n + 4 * cap, n, f"n={n} cap={cap} values=int32"))
+    return out
 
-    kernel, kw = calls["headline"]
+
+def _topk_context(device, calls):
+    """Whole-operation yardsticks for the headline top-k, as context and
+    not as a port: the port's topk_permutation (host clock, it waits on
+    the card twice), torch.topk and torch.sort on the same 64-bit key."""
+    f24 = calls["topk_ts_desc"][0][1]["gid"]  # only for the row count
+    n = f24.shape[0]
+    key = torch.randint(-(1 << 63), (1 << 63) - 1, (n,), dtype=torch.int64,
+                        device=device)
+
+    def wall_ms(fn, iters=5):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3 / iters
+
+    return {
+        "rows": n, "k": 100,
+        "topk_permutation_wall_ms": wall_ms(lambda: ksort.topk_permutation(key, 100)),
+        "torch_topk_ms": cuda_ms(lambda: torch.topk(key, 100), 5, warmup=1),
+        "torch_sort_ms": cuda_ms(lambda: torch.sort(key), 3, warmup=1),
+        "torch_sort_stable_ms": cuda_ms(
+            lambda: torch.sort(key, stable=True), 3, warmup=1),
+    }
+
+
+def phase_times(device, calls):
+    """Every call the main paths made (as recorded in phase 4: the same
+    tensors, sizes and options) goes through its wrapper and its plain
+    version once more; the results must be equal, and only then are
+    both timed. ``calls`` maps query name to a list of
+    (kernel name, keyword arguments)."""
+    headline_of = {"groupby_agg": "headline", "groupby_multi_agg": "multi_sum",
+                   "extract_ge": "topk_ts_desc"}
+    out = {name: {"other_shapes": {}} for name in _KERNELS}
+    checked = 0
+    for query, recorded in calls.items():
+        for i, (kernel, kw) in enumerate(recorded):
+            head = headline_of[kernel] == query
+            iters = 20 if head else 5
+            if kernel == "extract_ge":
+                res = check_and_time_extract(query, kw, iters)
+            else:
+                res = check_and_time(kernel, query, kw, iters)
+            checked += 1
+            if head:
+                out[kernel].update(res)
+            else:
+                label = query if len(recorded) == 1 else f"{query} call {i + 1}"
+                out[kernel]["other_shapes"][label] = res
+
+    kernel, kw = calls["headline"][0]
     check(kernel == "groupby_agg" and kw["gid"].dtype == torch.int16
           and kw["values"].dtype == torch.int16
           and kw["num_buckets"] == N_KEYS + 1 and len(kw["preds"]) == 1
@@ -513,7 +795,7 @@ def phase_times(device, calls):
         "torch.Tensor.index_add_ (int64, sums only, no filter)")
     del idx64, v64
 
-    kernel, kw = calls["multi_sum"]
+    kernel, kw = calls["multi_sum"][0]
     check(kernel == "groupby_multi_agg" and len(kw["streams"]) == 2
           and kw["mask"] is not None,
           "the multi-sum query did not reach the kernel with two streams"
@@ -526,12 +808,43 @@ def phase_times(device, calls):
         lambda: lib2.index_add_(0, idx64, vw), 5, warmup=1)
     out["groupby_multi_agg"]["library"] = (
         "torch.Tensor.index_add_ (int64 [n, 2], sums only, no filter)")
+    del idx64, vw
+
+    if "ms" in out["extract_ge"]:
+        # the top-k route reached the kernels as the histogram pair: a
+        # count-only pass over a 32-bit prefix stream, then the same
+        # restricted by an in-kernel `eq` on the first stream
+        (k1, kw1), (k2, kw2), (k3, _kw3) = calls["topk_ts_desc"]
+        check((k1, k2, k3) == ("groupby_agg", "groupby_agg", "extract_ge")
+              and kw1["gid"].dtype == torch.int32 and kw1.get("values") is None
+              and not kw1.get("preds") and kw1["num_buckets"] == 4096
+              and len(kw2["preds"]) == 1 and kw2["preds"][0].op == "eq"
+              and kw2["preds"][0].src == "stream",
+              "the headline top-k did not reach the kernels as two 4096-bucket"
+              " count histograms and one extraction")
+        # level 1 is a plain count per bucket, which one library call does
+        level1 = out["groupby_agg"]["other_shapes"]["topk_ts_desc call 1"]
+        prefix = kw1["gid"][:kw1["n"]]
+        level1["library_ms"] = cuda_ms(
+            lambda: torch.bincount(prefix, minlength=4096), 5, warmup=1)
+        level1["library"] = "torch.bincount (int32 keys, no predicate)"
     for name, d in out.items():
-        d["max_abs_err"] = max([d["max_abs_err"]] + [
+        d["max_abs_err"] = max([d.get("max_abs_err", 0.0)] + [
             o["max_abs_err"] for o in d["other_shapes"].values()])
-    log(f"phase 5: {len(calls) + 1} main-path shapes equal to their plain"
+    log(f"phase 5: {checked + 1} main-path shapes equal to their plain"
         f" versions (tolerance 0), then timed")
     return out
+
+
+_REPLACES = {
+    "groupby_agg": ("eventql_tpu_torch/kernels/csrc/groupby_agg.cu",
+                    "eventql_tpu/kernels/pallas_groupby.py:109", "evql_groupby_agg"),
+    "groupby_multi_agg": ("eventql_tpu_torch/kernels/csrc/groupby_agg.cu",
+                          "eventql_tpu/kernels/pallas_groupby.py:698",
+                          "evql_groupby_multi_agg"),
+    "extract_ge": ("eventql_tpu_torch/kernels/csrc/extract.cu",
+                   "eventql_tpu/kernels/extract.py:29", "evql_extract_ge"),
+}
 
 
 def main():
@@ -553,24 +866,22 @@ def main():
     log(f"phase 2: kernels built in {secs:.1f} s: {_build.sources()}")
 
     phase_kernels(device, N_KERNEL_CASE_ROWS)
-    launches, per_query, e2e, calls, resident = phase_main_path(
-        device, N_ROWS, N_PREFIX_ROWS, REPS)
-    times = phase_times(device, calls)
-    sources = {
-        "groupby_agg": ("eventql_tpu/kernels/pallas_groupby.py:109",
-                        "evql_groupby_agg"),
-        "groupby_multi_agg": ("eventql_tpu/kernels/pallas_groupby.py:698",
-                              "evql_groupby_multi_agg"),
-    }
+    run = phase_main_path(device, N_ROWS, N_PREFIX_ROWS, REPS)
+    times = phase_times(device, run["calls"])
+    context = _topk_context(device, run["calls"])
     kernels = []
     for name, t in times.items():
+        source, replaces, entry = _REPLACES[name]
+        check(run["launches"][name] > 0, f"{name}: not launched on a main path")
         kernels.append({
             "name": name,
             "route": "cuda",
-            "source": "eventql_tpu_torch/kernels/csrc/groupby_agg.cu",
-            "entry": sources[name][1],
-            "replaces": sources[name][0],
-            "launches": launches[name],
+            "source": source,
+            "entry": entry,
+            "replaces": replaces,
+            "launches": run["launches"][name],
+            "launches_by_path": {p: c[name]
+                                 for p, c in run["launches_by_path"].items()},
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -582,9 +893,10 @@ def main():
             "bytes": t["bytes"],
             "other_shapes": t["other_shapes"],
         })
-    log(json.dumps({"e2e_ms": e2e, "rows": N_ROWS,
-                    "launches_per_query": per_query,
-                    "device_bytes_held": resident}))
+    log(json.dumps({"e2e_ms": run["e2e"], "rows": N_ROWS,
+                    "launches_per_query": run["per_query"],
+                    "device_bytes_held": run["resident"],
+                    "topk_context": context}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

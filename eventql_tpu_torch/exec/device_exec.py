@@ -6,8 +6,13 @@ Routes the canonical analytics shape
 
 to the hand-written Hopper kernels of kernels/groupby_agg.py instead of
 the host columnar engine (the counterpart of
-eventql_tpu/exec/device_exec.py:try_execute_pallas_string_groupby). The
-host engine remains the semantic reference; plans outside the shape
+eventql_tpu/exec/device_exec.py:try_execute_pallas_string_groupby), and
+
+    SELECT ... FROM t [WHERE ...] ORDER BY ... [LIMIT k [OFFSET o]]
+
+to the device sort / histogram top-k of kernels/sort.py (the
+counterparts of try_execute_device_scan_topk / _scan_order there). The
+host engine remains the semantic reference; plans outside the shapes
 return None and fall back to it transparently.
 
 The device is the transaction's (``txn.device``): on a CUDA device the
@@ -178,6 +183,10 @@ _FUSED_OPS = {
 FUSED_GROUPBY_COUNT = 0
 # multi-sum route (2+ summed columns under one pass)
 MULTI_SUM_GROUPBY_COUNT = 0
+# ORDER BY ... LIMIT route (try_execute_device_scan_topk) and full
+# ORDER BY route (try_execute_device_scan_order)
+SCAN_TOPK_COUNT = 0
+SCAN_ORDER_COUNT = 0
 _FUSED_FLIP = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le", "eq": "eq", "ne": "ne"}
 _I32_MIN = -(1 << 31)
 
@@ -792,3 +801,301 @@ def _run_masked(scan, in_cols, g, key_in, key_all_valid, entries, kinds_static,
             mask, gid, sum_values(), kinds_static, num_buckets
         )
     return torch.stack([counts, *outs])
+
+
+# -- SELECT ... ORDER BY ... [LIMIT] on device (scan + sort / top-k) ----------
+
+
+def _dictionary_sorted(c: Column) -> bool:
+    """True when the column dictionary is in ascending byte order (the
+    ingest paths build dictionaries with np.unique, which sorts), so
+    dictionary ids are order-preserving ranks. Cached per Column."""
+    cached = getattr(c, "_dict_sorted_cache", None)
+    if cached is None:
+        e = c.dictionary
+        cached = all(e[i] <= e[i + 1] for i in range(len(e) - 1))
+        try:
+            c._dict_sorted_cache = cached
+        except AttributeError:
+            pass
+    return cached
+
+
+def _device_host_order_key(c: "torch_expr.DeviceCol", descending: bool, null_rank):
+    """u64 keys (int64 bit patterns) whose ascending unsigned order
+    equals the host engine's sort order for this column
+    (operators._sort_key_arrays + its descending transforms):
+      - NULL numerics sort as 0 of the dtype; NULL strings sort as the
+        literal "NULL" among the dictionary entries (null_rank is the
+        precomputed host rank of that label);
+      - floats: -0.0 ties +0.0 (host compares values) and NaN sorts
+        LAST in both directions (np.lexsort semantics); the key is made
+        from the value's own 64 bits on the device;
+      - descending is an order-reversing bijection (no INT64_MIN wrap).
+    """
+    from eventql_tpu_torch.kernels.groupby import sortable_u64
+
+    if c.stype == SType.STRING:
+        d = c.data.to(torch.int64)
+        rank = torch.where(c.valid, d + (d >= null_rank).to(torch.int64), null_rank)
+        return ~rank if descending else rank
+    zero = torch.zeros((), dtype=c.data.dtype, device=c.data.device)
+    x = torch.where(c.valid, c.data, zero)
+    if x.dtype == torch.float64:
+        x = x + 0.0  # -0.0 -> +0.0: host value-compare ties
+        k = sortable_u64(x, descending=descending)
+        return torch.where(torch.isnan(x), -1, k)  # all 64 bits set: last
+    return sortable_u64(
+        x, descending=descending, unsigned=torch_expr.is_unsigned(c.stype)
+    )
+
+
+def _emit_scan_rows(scan, table, cand: "np.ndarray", lo=0, hi=None) -> Relation:
+    """Materialize the chosen rows through the HOST evaluator: the
+    device decided only the ORDER (indices); values/formatting come
+    from the exact host expression path, so no output-transport
+    divergence is possible."""
+    from eventql_tpu_torch.exec.vector_eval import EvalContext, evaluate_vector
+
+    cand = cand[lo:hi]
+    name_to_col = dict(zip(table.names, table.columns))
+    in_rows = [name_to_col[cname].gather(cand) for cname, _t in scan.input_columns]
+    ctx = EvalContext(in_rows, len(cand))
+    out_cols = [evaluate_vector(sl.expr, ctx) for sl in scan.select_list]
+    names = [sl.column_name() for sl in scan.select_list]
+    return Relation(names, out_cols, len(cand))
+
+
+_M64 = 0xFFFFFFFFFFFFFFFF
+# static [lo, hi] bound of the u64 host-order key of a plain column
+# reference, by the column's physically-narrowed dtype
+_NARROW_BOUNDS = {
+    np.dtype(np.uint16): (0, 0xFFFF),
+    np.dtype(np.uint32): (0, 0xFFFFFFFF),
+    np.dtype(np.int16): ((1 << 63) - (1 << 15), (1 << 63) + (1 << 15) - 1),
+    np.dtype(np.int32): ((1 << 63) - (1 << 31), (1 << 63) + (1 << 31) - 1),
+    np.dtype(np.bool_): (0, 1),
+}
+
+
+def _prep_device_scan_order(order_node: qn.OrderByNode, txn):
+    """Shared front half of the device ORDER BY routes: eligibility,
+    table fetch, scan/WHERE evaluation, host-order key construction.
+    Returns (scan, table, mask, keys, n) or None; mask is None when the
+    scan has no WHERE."""
+    import bisect
+
+    scan = order_node.table
+    if not isinstance(scan, qn.SequentialScanNode):
+        return None
+    if scan.aggr_strategy != qn.SequentialScanNode.NO_AGGREGATION:
+        return None
+    if scan.keyrange is not None:
+        return None  # partition-scoped: host path applies the range
+    specs = order_node.sort_specs
+    if not specs:
+        return None
+    if scan.where_expr is not None and not torch_expr.expr_is_device_compatible(
+        scan.where_expr
+    ):
+        return None
+
+    # select entries referenced by the sort exprs (only those evaluate
+    # on device; the full select list is materialized by the host for
+    # just the winning rows)
+    needed = set()
+    stack = [s.expr for s in specs]
+    while stack:
+        e = stack.pop()
+        if isinstance(e, ColumnReferenceNode):
+            if e.column_index is None or e.column_index >= len(scan.select_list):
+                return None
+            needed.add(e.column_index)
+        stack.extend(e.arguments())
+    for s in specs:
+        if not torch_expr.expr_is_device_compatible(s.expr):
+            return None
+        if s.expr.return_type() == SType.STRING and not isinstance(
+            s.expr, ColumnReferenceNode
+        ):
+            return None
+    for i in needed:
+        e = scan.select_list[i].expr
+        if not torch_expr.expr_is_device_compatible(e):
+            return None
+        if e.return_type() == SType.STRING and not isinstance(
+            e, ColumnReferenceNode
+        ):
+            return None
+
+    table = txn.get_table_data(scan.table_name)
+    n = table.num_rows
+    if n == 0:
+        return None
+    if not _scan_inputs_present(table, scan):
+        return None
+    name_to_col = dict(zip(table.names, table.columns))
+
+    # STRING sort keys ride dictionary ids; ids are order-preserving
+    # only for sorted dictionaries, and the host sorts NULL as the
+    # literal "NULL" among the entries (operators._sort_key_arrays).
+    null_ranks = [None] * len(specs)
+    # static [lo, hi] bound on each u64 host-order key (pre-descending):
+    # string ranks are bounded by the dictionary size, and plain-ref
+    # numeric keys by the column's physically-narrowed dtype. A bounded
+    # key downcasts to 32 bits after the descending flip: half the bytes
+    # for every sort and histogram pass over it.
+    bounds = [None] * len(specs)
+    for si, s in enumerate(specs):
+        rt = s.expr.return_type()
+        if rt == SType.STRING:
+            inner = scan.select_list[s.expr.column_index].expr
+            src = name_to_col[scan.input_columns[inner.column_index][0]]
+            if src.dictionary is None or not _dictionary_sorted(src):
+                return None
+            entries = list(src.dictionary.astype(bytes))
+            null_ranks[si] = bisect.bisect_right(entries, b"NULL")
+            bounds[si] = (0, len(entries))
+        elif rt != SType.FLOAT64 and isinstance(s.expr, ColumnReferenceNode):
+            inner = scan.select_list[s.expr.column_index].expr
+            if isinstance(inner, ColumnReferenceNode) and (
+                inner.column_index is not None
+            ):
+                src = name_to_col[scan.input_columns[inner.column_index][0]]
+                bounds[si] = _NARROW_BOUNDS.get(_narrow_np(src).dtype)
+        if bounds[si] is not None and s.descending:
+            lo, hi = bounds[si]
+            bounds[si] = ((~hi) & _M64, (~lo) & _M64)
+
+    device = txn.device
+    in_cols = _to_device_cols(
+        table.columns, table.names, scan.input_columns, device
+    )
+    scan_cols = _LazyScanCols(scan, in_cols, n, device)
+    mask = None
+    if scan.where_expr is not None:
+        mask = torch_expr.compile_expr(
+            scan.where_expr, in_cols, n, device
+        ).data.expand(n)
+    keys = [
+        _device_host_order_key(
+            torch_expr.compile_expr(s.expr, scan_cols, n, device).full(n),
+            s.descending,
+            null_ranks[si],
+        )
+        for si, s in enumerate(specs)
+    ]
+    # downcast statically-bounded keys: (key - lo) is a strictly
+    # monotonic bijection of [lo, hi] onto [0, hi - lo], a u32 held in
+    # an int32 tensor; garbage values in filtered rows are harmless
+    # because the leading filter-mask key sinks them and both routes
+    # drop them
+    for si, b in enumerate(bounds):
+        if b is not None and b[1] - b[0] <= 0xFFFFFFFF:
+            keys[si] = (keys[si] - torch_expr._fold_i64(b[0])).to(torch.int32)
+    return scan, table, mask, keys, n
+
+
+def _masked_order_rows(mask, keys, w: int) -> "np.ndarray":
+    """The passing rows among the first ``w`` of the stable full sort
+    whose leading key is the filter mask (passing rows first, then host
+    order), as host row indices. The passing rows are a prefix of the
+    permutation, so their count is read first and only that prefix
+    leaves the device."""
+    from eventql_tpu_torch.kernels.sort import order_permutation, read_host
+
+    if mask is None:
+        return read_host(order_permutation(keys)[:w])
+    perm = order_permutation((~mask, *keys))
+    n_pass = int(read_host(mask.sum()))
+    return read_host(perm[: min(w, n_pass)])
+
+
+def try_execute_device_scan_topk(node: qn.LimitNode, txn) -> Optional[Relation]:
+    """SELECT ... FROM t [WHERE ...] ORDER BY ... LIMIT k on device.
+
+    The scan + WHERE + sort keys evaluate on the device and the window
+    comes from the histogram-threshold top-k (kernels/sort.py) for a
+    single key, from the stable full sort for multi-key specs. Only the
+    winning row INDICES leave the device; the host evaluator
+    materializes those few rows.
+
+    Filtered rows are excluded by forcing their top-key to 0. A passing
+    row whose key is legitimately 0 (the very last value in host order,
+    e.g. NaN or UINT64_MAX) can then tie with filtered rows, so the
+    host verifies the window (all passing-zero rows captured) and
+    reruns via the always-exact masked full sort when the rare corner
+    trips. Returns None when the plan shape is not routable."""
+    from eventql_tpu_torch.kernels.sort import read_host, topk_permutation
+
+    order_node = node.table
+    if not isinstance(order_node, qn.OrderByNode):
+        return None
+    w = node.offset + node.limit
+    if w == 0:
+        return None
+    prep = _prep_device_scan_order(order_node, txn)
+    if prep is None:
+        return None
+    global SCAN_TOPK_COUNT
+    SCAN_TOPK_COUNT += 1
+    scan, table, mask, keys, n = prep
+    w = min(w, n)
+    lo = node.offset
+    hi = node.offset + node.limit
+
+    if len(keys) == 1:
+        # top-k fast path: host-FIRST row <-> LARGEST flipped key;
+        # ties break toward the lowest row index = host stable order.
+        # A statically-bounded (32-bit) key stays narrow: the histogram
+        # top-k streams half the bytes (fast_topk_u32)
+        k0 = keys[0]
+        if mask is None:
+            idx = topk_permutation(~k0, w)
+            return _emit_scan_rows(scan, table, read_host(idx), lo, hi)
+        ktop = torch.where(
+            mask, ~k0, torch.zeros((), dtype=k0.dtype, device=k0.device)
+        )
+        npz = (mask & (ktop == 0)).sum()
+        idx = topk_permutation(ktop, w)
+        # ONE transfer: idx, window mask, window keys, zero-key count
+        packed = read_host(
+            torch.cat(
+                [
+                    idx,
+                    mask[idx].to(torch.int64),
+                    ktop[idx].to(torch.int64),
+                    npz.reshape(1),
+                ]
+            )
+        )
+        idx_h = packed[:w]
+        mask_w = packed[w : 2 * w] != 0
+        kw = packed[2 * w : 3 * w]
+        if bool(mask_w.all()):
+            return _emit_scan_rows(scan, table, idx_h, lo, hi)
+        # filtered rows in the window: exact iff every passing zero-key
+        # row is inside it (rows outside then all have key 0)
+        if int((mask_w & (kw == 0)).sum()) == int(packed[3 * w]):
+            return _emit_scan_rows(scan, table, idx_h[mask_w], lo, hi)
+
+    # multi-key specs / top-k corner: stable full sort with the filter
+    # mask as the leading key (passing rows first, host order)
+    return _emit_scan_rows(scan, table, _masked_order_rows(mask, keys, w), lo, hi)
+
+
+def try_execute_device_scan_order(
+    order_node: qn.OrderByNode, txn
+) -> Optional[Relation]:
+    """Full SELECT ... FROM t [WHERE ...] ORDER BY ... on device (no
+    LIMIT above): the stable sort over order-preserving keys replaces
+    the host's np.lexsort. The filter mask leads the key tuple so
+    filtered rows sink; the host materializes the passing rows in
+    order."""
+    prep = _prep_device_scan_order(order_node, txn)
+    if prep is None:
+        return None
+    global SCAN_ORDER_COUNT
+    SCAN_ORDER_COUNT += 1
+    scan, table, mask, keys, n = prep
+    return _emit_scan_rows(scan, table, _masked_order_rows(mask, keys, n))

@@ -8,10 +8,10 @@ argsort. Semantics are bit-identical to the reference's row-at-a-time
 loops (see SURVEY.md Appendix A).
 
 This is the port's own copy of the host engine. It is the semantic
-reference of the CUDA route (exec/device_exec.py) and serves every plan
-the route declines. Tiers that are not ported yet (partitioned, cluster
-and mesh providers, the ORDER BY / top-k and join device routes, the
-general device GROUP BY, the query cache, charts, nested scans) raise
+reference of the CUDA routes (exec/device_exec.py: GROUP BY sum/count,
+ORDER BY, ORDER BY ... LIMIT) and serves every plan the routes decline.
+Tiers that are not ported yet (partitioned, cluster and mesh providers,
+the join device route, the general device GROUP BY, the query cache, charts, nested scans) raise
 RuntimeError_ naming what is missing instead of being silently skipped.
 """
 
@@ -579,7 +579,18 @@ def _exec_having(node: qn.HavingNode, txn) -> Relation:
 
 
 def _exec_order_by(node: qn.OrderByNode, txn) -> Relation:
-    # the device scan-order route is not ported yet: host sort
+    if getattr(txn, "device", None) is not None and isinstance(
+        node.table, qn.SequentialScanNode
+    ):
+        # the device scan-order route; None -> shape not routable
+        from eventql_tpu_torch.exec.device_exec import (
+            try_execute_device_scan_order,
+        )
+
+        result = try_execute_device_scan_order(node, txn)
+        if result is not None:
+            return result
+
     child = execute_node(node.table, txn)
     return _order_relation(child, node.sort_specs)
 
@@ -614,7 +625,18 @@ def _order_relation(child: Relation, sort_specs) -> Relation:
 
 
 def _exec_limit(node: qn.LimitNode, txn) -> Relation:
-    # the device top-k route is not ported yet: host slice
+    if getattr(txn, "device", None) is not None and isinstance(
+        node.table, qn.OrderByNode
+    ):
+        # the device top-k route; None -> shape not routable
+        from eventql_tpu_torch.exec.device_exec import (
+            try_execute_device_scan_topk,
+        )
+
+        result = try_execute_device_scan_topk(node, txn)
+        if result is not None:
+            return result
+
     child = execute_node(node.table, txn)
     lo = node.offset
     hi = node.offset + node.limit

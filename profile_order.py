@@ -1,0 +1,88 @@
+#!/usr/bin/env python3
+"""Where the device time of the port's ORDER BY queries goes.
+
+    python3 profile_order.py     # from the root of the checkout; no arguments
+
+Needs one CUDA device and nvcc. Builds the table of chip_smoke.py at its
+size (chip_smoke.N_ROWS), runs each of its ORDER BY queries until warm, then once more under
+torch.profiler, and prints per query: the wall time of the profiled
+run, the summed device time, the device's idle share of the wall time,
+and the device time by kernel name (the largest first). The profiler
+slows the host side, so the wall time here is not the query's latency
+(chip_smoke.py reports that); the split of the device time is the point.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+import torch
+
+import chip_smoke
+from eventql_tpu_torch.exec.runtime import PlanCache, Runtime
+from eventql_tpu_torch.kernels import _build
+
+
+def _short(kernel_name):
+    """A kernel's name without its template arguments and namespaces:
+    PyTorch's elementwise kernels differ only in a functor far down."""
+    name = kernel_name.replace("(anonymous namespace)::", "")
+    name = name.split("<")[0].split("(")[0].replace("void ", "")
+    functor = ""
+    for part in ("bitwise", "BUnaryFunctor", "AUnaryFunctor", "direct_copy",
+                 "compare", "where", "index", "RadixSort", "reduce"):
+        if part in kernel_name:
+            functor = f" [{part}]"
+            break
+    return name.split("::")[-1] + functor
+
+
+def main():
+    if len(sys.argv) > 1:
+        sys.exit("profile_order: takes no arguments; the size is chip_smoke's")
+    if not torch.cuda.is_available():
+        sys.exit("profile_order: no CUDA device is available")
+    n = chip_smoke.N_ROWS
+    device = torch.device("cuda", torch.cuda.current_device())
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    _build.build_all()
+    cols, dictionary = chip_smoke.make_table(n, seed=42)
+    provider = chip_smoke.provider_of(cols, dictionary, n)
+    rt = Runtime(plan_cache=PlanCache(), device=device)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for name, sql, *_rest in chip_smoke.order_queries(cols, dictionary, n):
+        for _ in range(3):
+            chip_smoke.run_query(rt, provider, sql)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = time.perf_counter()
+            chip_smoke.run_query(rt, provider, sql)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        by_kernel = {}
+        for ev in prof.key_averages():
+            # kernel events only: an operator's entry repeats the time of
+            # the kernels it launched
+            if ev.device_type != DeviceType.CUDA:
+                continue
+            dev_us = getattr(ev, "self_device_time_total", 0) or 0
+            if dev_us > 0:
+                key = _short(ev.key)
+                by_kernel[key] = by_kernel.get(key, 0.0) + dev_us / 1e3
+        device_ms = sum(by_kernel.values())
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+        print(json.dumps({
+            "query": name, "rows": n, "profiled_wall_ms": wall_ms,
+            "device_ms": device_ms,
+            "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+            "device_ms_by_kernel": {k: round(v, 4) for k, v in top},
+        }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

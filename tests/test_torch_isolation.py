@@ -43,6 +43,17 @@ res = rt.build_query_plan(
 assert [r[0] for r in res.rows] == ["a", "b", "c", "d"], res.rows
 assert sum(int(r[1]) for r in res.rows) == int((rel.columns[1].data < 800).sum())
 assert device_exec.FUSED_GROUPBY_COUNT == 1
+res = rt.build_query_plan(
+    rt.new_transaction(p), "select k, v from t order by v desc, k limit 3;"
+).execute(0)
+top = np.lexsort((rel.columns[0].data, -rel.columns[1].data.astype(np.int64)))[:3]
+assert [int(r[1]) for r in res.rows] == [int(rel.columns[1].data[i]) for i in top]
+res = rt.build_query_plan(
+    rt.new_transaction(p), "select v from t where v < 10 order by v;"
+).execute(0)
+assert [int(r[0]) for r in res.rows] == sorted(
+    int(x) for x in rel.columns[1].data if x < 10)
+assert (device_exec.SCAN_TOPK_COUNT, device_exec.SCAN_ORDER_COUNT) == (1, 1)
 
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "jaxlib" or m == "eventql_tpu" or m.startswith("eventql_tpu.")]
@@ -61,8 +72,12 @@ for make in (lambda: Runtime(), lambda: Runtime(device="cuda"),
 
 # a CUDA tensor is never served by the plain version: without a card
 # the tensor cannot even be made, and the wrapper has no other path
-from eventql_tpu_torch.kernels import groupby_agg
+from eventql_tpu_torch.kernels import extract, groupby, groupby_agg, sort
 assert groupby_agg.LAUNCHES == {"groupby_agg": 0, "groupby_multi_agg": 0}
+assert extract.LAUNCHES == {"extract_ge": 0}
+key = groupby.sortable_u64(torch.tensor([3, -1, 2]), descending=True)
+assert sort.topk_permutation(key, 1).tolist() == [1]
+assert extract.extract_ge(torch.tensor([1, 7, 9], dtype=torch.int32), 7, 2).tolist() == [1, 2]
 print("ISOLATED-OK")
 """
 
@@ -88,6 +103,7 @@ _FORBIDDEN = re.compile(
 
 def _port_sources():
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "profile_order.py")
     for root, _dirs, files in os.walk(os.path.join(REPO, "eventql_tpu_torch")):
         for f in files:
             if f.endswith((".py", ".cu", ".cuh")):
@@ -128,4 +144,4 @@ def test_kernel_build_needs_a_compiler(tmp_path, monkeypatch):
         pytest.skip("a CUDA toolkit is installed here")
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.build_all()
-    assert _build.sources() == ["groupby_agg"]
+    assert _build.sources() == ["extract", "groupby_agg"]
