@@ -9,12 +9,13 @@ Phases (any mismatch or exception ends the run with a non-zero code):
   3. kernels: every kernel wrapper against its plain PyTorch version on
      the card, exact equality (integer sums and row indices: tolerance 0);
   4. main paths: SQL text -> Runtime(device="cuda") -> ResultList on a
-     partition-sized table (2^26 rows, ~1.9 GB on the device): first the
-     GROUP BY sum/count queries, then the ORDER BY [LIMIT] queries, each
-     path with the launch counts set to 0 just before it and read just
-     after. Every query's rows equal an independent numpy answer and, on
-     a 2^20-row prefix, the port's own host engine; route and launch
-     counters rose as they must;
+     partition-sized table (2^26 rows, ~2.8 GB on the device): first the
+     GROUP BY sum/count queries, then the ORDER BY [LIMIT] queries, then
+     the fact-dim JOIN + GROUP BY queries (dimension tables of 1024 and
+     2^18 rows), each path with the launch counts set to 0 just before
+     it and read just after. Every query's rows equal an independent
+     numpy answer and, on a 2^20-row prefix, the port's own host engine;
+     route and launch counters rose as they must;
   5. the main paths' shapes: every kernel call the queries of phase 4
      made is repeated on the same tensors through the wrapper and the
      plain version, which must be equal (tolerance 0); then CUDA-event
@@ -46,6 +47,7 @@ from eventql_tpu_torch.exec.runtime import (
 from eventql_tpu_torch.kernels import _build
 from eventql_tpu_torch.kernels import extract as ex
 from eventql_tpu_torch.kernels import groupby_agg as ga
+from eventql_tpu_torch.kernels import join as kj
 from eventql_tpu_torch.kernels import sort as ksort
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
@@ -62,6 +64,11 @@ N_KEYS = 1024
 BIG_BASE = 20_000_000
 BIG_SPAN = 100_000
 CAT_LO, CAT_HI = -40, 60
+N_DIMS = 1024  # the small dimension table: shared-memory probe
+DIM_MULT = 7919
+N_BIG_DIMS = 1 << 18  # the large one: sorted table in global memory
+BIG_DIM_MULT = 2654435761
+N_REGIONS = 1024
 FAST_TOPK_ROWS = 1 << 22  # from here on a single-key top-k takes the histograms
 I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
 
@@ -196,6 +203,81 @@ def extract_cases(n, rng):
     yield "n below the stream's length", planted(many), 5000, 2000, n - n // 3
 
 
+def _fingerprint_twin(lo, hi):
+    """A key with the high word ``hi`` and the 32-bit fingerprint of the
+    key (0, lo) under the mix the TPU kernel compared by: the pair its
+    precondition ruled out."""
+    f = (((hi << 13) & 0xFFFFFFFF) | ((hi >> 19) & 0x1FFF)) ^ ((hi >> 7) & 0x01FFFFFF)
+    return (hi << 32) | (lo ^ f)
+
+
+def join_cases(n, device, rng):
+    """Yield (kernel name, label, kwargs) for the two join probes: the
+    dimension counts around the tier boundary, a ragged n, misses, keys
+    with the top bit set, the all-ones key (the hash table's empty
+    mark), colliding fingerprints, narrowed fact key streams."""
+    ALL_ONES = 0xFFFFFFFFFFFFFFFF
+
+    def dims(D, top_bit=False, all_ones=False, narrow_to=None):
+        if narrow_to is not None:
+            keys = rng.choice(1 << narrow_to, D, replace=False).astype(np.uint64)
+            keys[0] = (1 << narrow_to) - 1  # the narrow type's top bit
+        else:
+            keys = rng.permutation(np.arange(D, dtype=np.uint64) * 104729 + 11)
+        if top_bit:
+            keys[::2] |= np.uint64(1 << 63)
+        if all_ones:
+            keys[D // 2] = ALL_ONES
+        return keys, rng.integers(0, 100_000, D).astype(np.int32)
+
+    def facts(keys, dtype=np.uint64):
+        # two rows in three hit a dimension key, the rest are near misses
+        hit = keys[rng.integers(0, len(keys), n)]
+        return np.where(rng.random(n) < 0.67, hit, hit + np.uint64(1)).astype(dtype)
+
+    def both(label, keys, bucket, fact, rows=None, probe_only=False):
+        dk, db, f = (dev_tensor(a, device) for a in (keys, bucket, fact))
+        if not probe_only:
+            yield "dim_join_gid", label, dict(
+                fact_keys=f, dim_keys=dk, dim_bucket=db, n=rows)
+        sk, perm = kj.build_side(dk)
+        yield "probe_join_gid", label, dict(
+            fact_keys=f, sorted_dim_keys=sk,
+            sorted_dim_bucket=db[perm].contiguous(), n=rows)
+
+    for D in (1, 127, 1024, kj.MAX_COMPARE_DIMS):
+        keys, bucket = dims(D)
+        yield from both(f"D={D}", keys, bucket, facts(keys))
+    for D in (kj.MAX_COMPARE_DIMS + 1, N_BIG_DIMS):
+        keys, bucket = dims(D)
+        yield from both(f"D={D}", keys, bucket, facts(keys), probe_only=True)
+    keys, bucket = dims(5003)
+    yield from both("ragged n", keys, bucket, facts(keys), rows=n - 12345)
+    keys, bucket = dims(3001, top_bit=True)
+    f = facts(keys)
+    f[::7] ^= np.uint64(1 << 63)  # the same low 63 bits: misses
+    yield from both("top-bit keys", keys, bucket, f)
+    keys, bucket = dims(2000, top_bit=True, all_ones=True)
+    f = facts(keys)
+    f[::5] = ALL_ONES
+    yield from both("all-ones key among the dims", keys, bucket, f)
+    keys, bucket = dims(2000)
+    f = facts(keys)
+    f[::5] = ALL_ONES
+    yield from both("all-ones key only among the facts", keys, bucket, f)
+    lows = rng.choice(1 << 31, 500, replace=False)
+    keys = np.array([int(lo) for lo in lows]
+                    + [_fingerprint_twin(int(lo), 1 + i) for i, lo in enumerate(lows)],
+                    dtype=np.uint64)
+    yield from both("colliding fingerprints", keys,
+                    rng.integers(0, 512, len(keys)).astype(np.int32), facts(keys))
+    for bits, dt in ((16, np.uint16), (32, np.uint32)):
+        keys, bucket = dims(700, narrow_to=bits)
+        f = np.where(rng.random(n) < 0.67, keys[rng.integers(0, 700, n)],
+                     rng.integers(0, 1 << bits, n).astype(np.uint64)).astype(dt)
+        yield from both(f"fact keys narrowed to u{bits}", keys, bucket, f)
+
+
 class _Kernel:
     """One wrapper of the port: where it lives, its plain version, and
     the module that counts its launches."""
@@ -214,6 +296,8 @@ _KERNELS = {
     "groupby_agg": _Kernel(ga, "groupby_agg"),
     "groupby_multi_agg": _Kernel(ga, "groupby_multi_agg"),
     "extract_ge": _Kernel(ex, "extract_ge"),
+    "dim_join_gid": _Kernel(kj, "dim_join_gid"),
+    "probe_join_gid": _Kernel(kj, "probe_join_gid"),
 }
 
 
@@ -268,6 +352,19 @@ def phase_kernels(device, n):
         else:
             check(int(got[0].sum()) > 0, f"{name} [{label}]: nothing counted")
         cases += 1
+    for name, label, kw in join_cases(n, device, rng):
+        got = _KERNELS[name].wrapper(**kw)
+        want = _KERNELS[name].plain(**kw)
+        torch.cuda.synchronize()
+        rows = kw["fact_keys"].shape[0] if kw["n"] is None else kw["n"]
+        check(got.dtype == torch.int32 and got.shape == (rows,),
+              f"{name} [{label}]: shape/dtype")
+        check(torch.equal(got, want),
+              f"{name} [{label}]: kernel and plain version disagree on"
+              f" {int((got != want).sum())} rows")
+        hits = int((got >= 0).sum())
+        check(0 < hits < rows, f"{name} [{label}]: {hits} hits in {rows} rows")
+        cases += 1
     for name, count in launch_counts().items():
         check(count > 0, f"{name}: no kernel launch in phase 3")
     log(f"phase 3: {cases} kernel cases equal to their plain versions"
@@ -277,14 +374,17 @@ def phase_kernels(device, n):
 # -- phase 4: the main paths --------------------------------------------------
 
 COLUMNS = [("k", SType.STRING), ("v", SType.UINT64), ("w", SType.UINT64),
-           ("cat", SType.INT64), ("big", SType.UINT64), ("ts", SType.UINT64)]
+           ("cat", SType.INT64), ("big", SType.UINT64), ("ts", SType.UINT64),
+           ("dk", SType.UINT64), ("dk2", SType.UINT64)]
 
 
 def make_table(n, seed):
     """The sql_groupby deployment of the JAX package's bench at
     partition size: a dictionary-encoded string key plus numeric
-    columns that narrow to 16 and 32 bits; and the sort column of its
-    sql_topk deployment, a full-range 64-bit timestamp."""
+    columns that narrow to 16 and 32 bits; the sort column of its
+    sql_topk deployment, a full-range 64-bit timestamp; and the fact
+    keys of its join and join_bigdim deployments: ``dk`` (narrows to 32
+    bits; half its rows have no dimension row) and ``dk2`` (64 bits)."""
     rng = np.random.default_rng(seed)
     cols = {
         "k": rng.integers(0, N_KEYS, n).astype(np.int32),
@@ -293,6 +393,8 @@ def make_table(n, seed):
         "cat": rng.integers(CAT_LO, CAT_HI, n).astype(np.int64),
         "big": (rng.integers(0, BIG_SPAN, n) + BIG_BASE).astype(np.uint64),
         "ts": rng.integers(0, 1 << 63, n, dtype=np.uint64),
+        "dk": rng.integers(0, 2 * N_DIMS, n).astype(np.uint64) * DIM_MULT + 3,
+        "dk2": rng.integers(0, N_BIG_DIMS, n).astype(np.uint64) * BIG_DIM_MULT + 3,
     }
     dictionary = np.array([b"k%05d" % i for i in range(N_KEYS)], dtype=object)
     return cols, dictionary
@@ -308,6 +410,29 @@ def provider_of(cols, dictionary, n):
     p = RelationTableProvider()
     p.add_table("t", rel)
     return p
+
+
+def make_dims(seed):
+    """The two dimension tables: name -> (ordinal of each row's key,
+    region of each row); row i has the key ordinal * multiplier + 3, the
+    rows are in a random order, and ``region`` has N_REGIONS values."""
+    rng = np.random.default_rng(seed)
+    return {
+        name: (rng.permutation(d), rng.integers(0, N_REGIONS, d))
+        for name, d in (("d1", N_DIMS), ("d2", N_BIG_DIMS))
+    }
+
+
+def add_dims(provider, dims):
+    regions = np.array([b"r%04d" % i for i in range(N_REGIONS)], dtype=object)
+    for (name, (ordinal, region)), mult in zip(dims.items(), (DIM_MULT, BIG_DIM_MULT)):
+        ones = np.ones(len(ordinal), bool)
+        provider.add_table(name, relation_from_numpy(
+            ["k", "region"],
+            [(SType.UINT64, ordinal.astype(np.uint64) * mult + 3, ones, None),
+             (SType.STRING, region.astype(np.int32), ones, regions)],
+        ))
+    return provider
 
 
 def _bincounts(key, K, keep, *weights):
@@ -429,6 +554,69 @@ def order_queries(c, dictionary, n):
     return out
 
 
+def join_queries(c, dims, n):
+    """(name, sql, launches per run, expected rows in order, or None for
+    the query the host engine must serve). The independent answer undoes
+    the key arithmetic: a fact key is ordinal * multiplier + 3, and the
+    region of an ordinal is looked up in a table indexed by ordinal.
+    The rows come in the order of each region's first surviving row."""
+    v, w = c["v"][:n], c["w"][:n]
+    region_of = {}
+    for (name, (ordinal, region)), slots in zip(dims.items(), (2 * N_DIMS, N_BIG_DIMS)):
+        lut = np.full(slots, -1, np.int64)  # ordinals without a row: no match
+        lut[ordinal] = region
+        region_of[name] = lut
+    r1 = region_of["d1"][(c["dk"][:n] - 3) // DIM_MULT]
+    r2 = region_of["d2"][(c["dk2"][:n] - 3) // BIG_DIM_MULT]
+    check(0.4 < (r1 < 0).mean() < 0.6 and (r2 >= 0).all(),
+          "half of dk and all of dk2 should find a dimension row")
+
+    def rows(region, keep, *cols, count_last=False):
+        keep = keep & (region >= 0)
+        occ, cnt, sums = _bincounts(region, N_REGIONS, keep, *cols)
+        # first surviving row per region: every region shows up early
+        head = np.nonzero(keep[: 1 << 20])[0]
+        seen, first = np.unique(region[head], return_index=True)
+        check(len(seen) == len(occ) or n <= (1 << 20),
+              "a region has no row in the first 2^20")
+        if len(seen) != len(occ):
+            seen, first = np.unique(region[keep], return_index=True)
+        order = np.argsort(first, kind="stable")
+        at = {int(o): i for i, o in enumerate(occ)}
+        out = []
+        for o in seen[order]:
+            i = at[int(o)]
+            aggs = [str(int(x[i])) for x in sums]
+            count = [str(int(cnt[i]))]
+            out.append(["r%04d" % o] + (aggs + count if count_last else count + aggs))
+        return out
+
+    everything = np.ones(n, bool)
+    agg, multi = "groupby_agg", "groupby_multi_agg"
+    return [
+        ("join_small_dim",
+         "select d1.region, count(1), sum(t.v) from t join d1 on t.dk = d1.k"
+         " group by d1.region;",
+         {"dim_join_gid": 1, agg: 1}, rows(r1, everything, v)),
+        ("join_small_dim_where",
+         "select d1.region, count(1), sum(t.w) from t join d1 on t.dk = d1.k"
+         " where t.v < 800 group by d1.region;",
+         {"dim_join_gid": 1, agg: 1}, rows(r1, v < 800, w)),
+        ("join_small_dim_two_sums",
+         "select d1.region, sum(t.v), sum(t.w), count(1) from t join d1 on"
+         " t.dk = d1.k group by d1.region;",
+         {"dim_join_gid": 1, multi: 1}, rows(r1, everything, v, w, count_last=True)),
+        ("join_big_dim",
+         "select d2.region, count(1), sum(t.v) from t join d2 on t.dk2 = d2.k"
+         " group by d2.region;",
+         {"probe_join_gid": 1, agg: 1}, rows(r2, everything, v)),
+        ("join_min_max_host_route",
+         "select d1.region, min(t.v), max(t.w) from t join d1 on t.dk = d1.k"
+         " group by d1.region;",
+         {}, None),
+    ]
+
+
 def run_query(rt, provider, sql):
     txn = rt.new_transaction(provider)
     return rt.build_query_plan(txn, sql).execute(0)
@@ -548,6 +736,38 @@ def order_path(rt, full, qs, reps):
     return e2e, launches_by_query, calls
 
 
+def join_path(rt, full, qs, reps):
+    """The fact-dim JOIN + GROUP BY path at full size: rows and their
+    order must equal the numpy answer. Returns (e2e, launches per query,
+    the last run's kernel calls per query)."""
+    e2e, launches_by_query, calls = {}, {}, {}
+    for name, sql, per_run, expected in qs:
+        if expected is None:
+            continue  # the host engine's: run on the prefix only
+        before = launch_counts()
+        route0 = device_exec.JOIN_GROUPBY_COUNT
+        reads0 = ksort.READBACKS
+        res, times, n_calls, recorded = _timed_runs(rt, full, sql, reps)
+        got = res.rows
+        check(len(got) == len(expected),
+              f"{name}: {len(got)} groups, expected {len(expected)}")
+        check(got == expected, f"{name}: rows or their order differ from the"
+              " numpy answer")
+        check(device_exec.JOIN_GROUPBY_COUNT - route0 == reps,
+              f"{name}: join route counter")
+        after = launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        want = {k: reps * per_run.get(k, 0) for k in after}
+        check(delta == want, f"{name}: launches {delta}, expected {want}")
+        check(n_calls == reps * len(per_run)
+              and [c[0] for c in recorded] == list(per_run), f"{name}: recorded calls")
+        calls[name] = recorded
+        launches_by_query[name] = dict(per_run)
+        e2e[name] = _e2e(times, groups=len(got),
+                         readbacks=(ksort.READBACKS - reads0) // reps)
+    return e2e, launches_by_query, calls
+
+
 def phase_main_path(device, n, n_prefix, reps):
     """Both paths of the port at ``n`` rows, then both on the prefix
     against the host engine. Returns a dict: launches (per kernel, the
@@ -555,10 +775,12 @@ def phase_main_path(device, n, n_prefix, reps):
     (query -> list of (kernel, kwargs)), resident bytes."""
     t0 = time.perf_counter()
     cols, dictionary = make_table(n, seed=42)
-    full = provider_of(cols, dictionary, n)
-    prefix = provider_of(cols, dictionary, n_prefix)
+    dims = make_dims(seed=43)
+    full = add_dims(provider_of(cols, dictionary, n), dims)
+    prefix = add_dims(provider_of(cols, dictionary, n_prefix), dims)
     gqs = queries(cols, dictionary)
     oqs = order_queries(cols, dictionary, n)
+    jqs = join_queries(cols, dims, n)
     log(f"phase 4: table of {n} rows and expected answers made in"
         f" {time.perf_counter() - t0:.1f} s")
 
@@ -582,13 +804,21 @@ def phase_main_path(device, n, n_prefix, reps):
     log(f"phase 4: {len(oqs)} ORDER BY queries x {reps} equal to numpy at {n}"
         f" rows, in order; launches {o_launches}")
 
+    zero_launch_counts()
+    j_e2e, j_per_query, j_calls = join_path(rt, full, jqs, reps)
+    j_launches = launch_counts()
+    for name in ("dim_join_gid", "probe_join_gid", "groupby_agg", "groupby_multi_agg"):
+        check(j_launches[name] > 0, f"{name}: not launched on the JOIN path")
+    log(f"phase 4: {len(j_e2e)} JOIN + GROUP BY queries x {reps} equal to numpy at"
+        f" {n} rows, in order; launches {j_launches}")
+
     # bytes of the table's columns as the column cache holds them
     resident = sum(
         t.numel() * t.element_size()
         for c in full.get_table_data("t").columns
         for t in c._device_cache[str(device)]
     )
-    check(resident > n * 20, "the table is not resident on the device")
+    check(resident > n * 34, "the table is not resident on the device")
     log(f"phase 4: device memory held {resident} bytes")
 
     # the same queries on a prefix: device routes against the host engine
@@ -602,16 +832,26 @@ def phase_main_path(device, n, n_prefix, reps):
         b = run_query(host_rt, prefix, sql).rows
         check(a == b and len(a) > 0,
               f"{name}: device route and host engine differ on the prefix")
-    log(f"phase 4: {len(gqs) + len(oqs)} queries equal to the host engine at"
-        f" {n_prefix} rows")
+    for name, sql, per_run, expected in jqs:
+        route0 = device_exec.JOIN_GROUPBY_COUNT
+        a = run_query(rt, prefix, sql).rows
+        b = run_query(host_rt, prefix, sql).rows
+        check(a == b and len(a) > 0,
+              f"{name}: device route and host engine differ on the prefix")
+        check(device_exec.JOIN_GROUPBY_COUNT - route0 == (expected is not None),
+              f"{name}: join route counter on the prefix")
+    log(f"phase 4: {len(gqs) + len(oqs) + len(jqs)} queries equal to the host"
+        f" engine at {n_prefix} rows")
     # the counts as read after each path's full-size queries: the prefix
     # runs above and phase 5 launch too, and are not the main path
     return dict(
-        launches={k: g_launches[k] + o_launches[k] for k in g_launches},
-        launches_by_path={"group_by": g_launches, "order_by": o_launches},
-        per_query={**g_per_query, **o_per_query},
-        e2e={**g_e2e, **o_e2e},
-        calls={**{q: [c] for q, c in g_calls.items()}, **o_calls},
+        launches={k: g_launches[k] + o_launches[k] + j_launches[k]
+                  for k in g_launches},
+        launches_by_path={"group_by": g_launches, "order_by": o_launches,
+                          "join": j_launches},
+        per_query={**g_per_query, **o_per_query, **j_per_query},
+        e2e={**g_e2e, **o_e2e, **j_e2e},
+        calls={**{q: [c] for q, c in g_calls.items()}, **o_calls, **j_calls},
         resident=resident,
     )
 
@@ -719,6 +959,60 @@ def check_and_time_extract(label, kw, iters):
     return out
 
 
+def check_and_time_join(kernel, label, kw, iters):
+    """A join probe on a recorded call: equal to the plain version
+    (tolerance 0), then timed beside the chain of library calls that
+    does the same on keys made ready beforehand (widened to int64 with
+    the top bit flipped, the dimension side sorted): no single PyTorch
+    call computes the probe."""
+    wrapper, plain = _KERNELS[kernel].wrapper, _KERNELS[kernel].plain
+    got, want = wrapper(**kw), plain(**kw)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and got.dtype == torch.int32,
+          f"{kernel} [{label}]: shape/dtype differ from the plain version")
+    err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+    check(torch.equal(got, want),
+          f"{kernel} [{label}]: kernel and plain version disagree at the main"
+          f" path's shape ({int((got != want).sum())} rows)")
+    hits = int((got >= 0).sum())
+    check(hits > 0, f"{kernel} [{label}]: no fact row found its dimension row")
+    del got, want
+
+    facts, n = kw["fact_keys"], kw["n"]
+    if kernel == "dim_join_gid":
+        sk, perm = kj.build_side(kw["dim_keys"])
+        bucket = kw["dim_bucket"][perm].contiguous()
+    else:
+        sk, bucket = kw["sorted_dim_keys"], kw["sorted_dim_bucket"]
+    D = sk.shape[0]
+    flip = -(1 << 63)
+    sk_f, pk = sk ^ flip, kj._u64_bits(facts[:n])
+    pk_f = pk ^ flip
+
+    def chain():
+        pos = torch.searchsorted(sk_f, pk_f).clamp_(max=D - 1)
+        return torch.where(sk[pos] == pk, bucket[pos], -1)
+
+    check(torch.equal(chain().to(torch.int32), wrapper(**kw)),
+          f"{kernel} [{label}]: the library chain disagrees")
+    out = dict(
+        max_abs_err=float(err), hits=hits,
+        ms=cuda_ms(lambda: wrapper(**kw), iters),
+        plain_ms=cuda_ms(lambda: plain(**kw), 2, warmup=1),
+        library_ms=cuda_ms(chain, 3, warmup=1),
+        library="chain of 5 calls, no single one does the probe: torch.searchsorted,"
+                " clamp_, two gathers, ==, where (on int64 keys flipped beforehand)",
+    )
+    # the fact keys read once at their stored width, one int32 written a
+    # row, the dimension table read once; a hash and two compares a row
+    # in shared memory, or one compare per step of the search
+    width = facts.element_size()
+    ops_per_row = 12 if kernel == "dim_join_gid" else max(D - 1, 1).bit_length() + 1
+    out.update(_bound(n * (width + 4) + D * 12, n * ops_per_row,
+                      f"n={n} D={D} fact_keys={str(facts.dtype).split('.')[-1]}"))
+    return out
+
+
 def _topk_context(device, calls):
     """Whole-operation yardsticks for the headline top-k, as context and
     not as a port: the port's topk_permutation (host clock, it waits on
@@ -754,7 +1048,8 @@ def phase_times(device, calls):
     both timed. ``calls`` maps query name to a list of
     (kernel name, keyword arguments)."""
     headline_of = {"groupby_agg": "headline", "groupby_multi_agg": "multi_sum",
-                   "extract_ge": "topk_ts_desc"}
+                   "extract_ge": "topk_ts_desc", "dim_join_gid": "join_small_dim",
+                   "probe_join_gid": "join_big_dim"}
     out = {name: {"other_shapes": {}} for name in _KERNELS}
     checked = 0
     for query, recorded in calls.items():
@@ -763,6 +1058,8 @@ def phase_times(device, calls):
             iters = 20 if head else 5
             if kernel == "extract_ge":
                 res = check_and_time_extract(query, kw, iters)
+            elif kernel in ("dim_join_gid", "probe_join_gid"):
+                res = check_and_time_join(kernel, query, kw, iters)
             else:
                 res = check_and_time(kernel, query, kw, iters)
             checked += 1
@@ -828,6 +1125,22 @@ def phase_times(device, calls):
         level1["library_ms"] = cuda_ms(
             lambda: torch.bincount(prefix, minlength=4096), 5, warmup=1)
         level1["library"] = "torch.bincount (int32 keys, no predicate)"
+    # the join queries reached the probes as the narrowed (32-bit) and
+    # the 64-bit fact key stream, at the two dimension sizes
+    (k1, kw1), (k2, kw2) = calls["join_small_dim"]
+    check((k1, k2) == ("dim_join_gid", "groupby_agg")
+          and kw1["fact_keys"].dtype == torch.int32
+          and kw1["dim_keys"].shape[0] == N_DIMS and kw2["gid"].dtype == torch.int32
+          and kw2["values"].dtype == torch.int16
+          and 0 < kw2["num_buckets"] <= N_REGIONS,
+          "the small-dim join did not reach the kernels as a u32 key stream"
+          " against 1024 dims, then i32 buckets with the u16 value stream")
+    (k1, kw1), (k2, kw2) = calls["join_big_dim"]
+    check((k1, k2) == ("probe_join_gid", "groupby_agg")
+          and kw1["fact_keys"].dtype == torch.int64
+          and kw1["sorted_dim_keys"].shape[0] == N_BIG_DIMS,
+          "the big-dim join did not reach the kernels as a u64 key stream"
+          " against 2^18 sorted dims")
     for name, d in out.items():
         d["max_abs_err"] = max([d.get("max_abs_err", 0.0)] + [
             o["max_abs_err"] for o in d["other_shapes"].values()])
@@ -844,6 +1157,10 @@ _REPLACES = {
                           "evql_groupby_multi_agg"),
     "extract_ge": ("eventql_tpu_torch/kernels/csrc/extract.cu",
                    "eventql_tpu/kernels/extract.py:29", "evql_extract_ge"),
+    "dim_join_gid": ("eventql_tpu_torch/kernels/csrc/join.cu",
+                     "eventql_tpu/kernels/join.py:142", "evql_dim_join_gid"),
+    "probe_join_gid": ("eventql_tpu_torch/kernels/csrc/join.cu",
+                       "eventql_tpu/kernels/join.py:449", "evql_probe_join_gid"),
 }
 
 

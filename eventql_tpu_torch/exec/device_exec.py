@@ -11,9 +11,15 @@ eventql_tpu/exec/device_exec.py:try_execute_pallas_string_groupby), and
     SELECT ... FROM t [WHERE ...] ORDER BY ... [LIMIT k [OFFSET o]]
 
 to the device sort / histogram top-k of kernels/sort.py (the
-counterparts of try_execute_device_scan_topk / _scan_order there). The
-host engine remains the semantic reference; plans outside the shapes
-return None and fall back to it transparently.
+counterparts of try_execute_device_scan_topk / _scan_order there), and
+
+    SELECT d.col, count(*) / sum(f.v) ... FROM f JOIN d ON f.k = d.k
+    [WHERE fact-side predicate] GROUP BY d.col
+
+to the join probe kernels of kernels/join.py feeding the same
+aggregation kernels (the counterpart of try_execute_device_join_groupby
+there). The host engine remains the semantic reference; plans outside
+the shapes return None and fall back to it transparently.
 
 The device is the transaction's (``txn.device``): on a CUDA device the
 kernels launch, on the CPU device the same route runs through their
@@ -187,6 +193,8 @@ MULTI_SUM_GROUPBY_COUNT = 0
 # ORDER BY route (try_execute_device_scan_order)
 SCAN_TOPK_COUNT = 0
 SCAN_ORDER_COUNT = 0
+# fact-dim JOIN + GROUP BY route (try_execute_device_join_groupby)
+JOIN_GROUPBY_COUNT = 0
 _FUSED_FLIP = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le", "eq": "eq", "ne": "ne"}
 _I32_MIN = -(1 << 31)
 
@@ -1099,3 +1107,405 @@ def try_execute_device_scan_order(
     SCAN_ORDER_COUNT += 1
     scan, table, mask, keys, n = prep
     return _emit_scan_rows(scan, table, _masked_order_rows(mask, keys, n))
+
+
+# -- SQL JOIN ... GROUP BY on device ------------------------------------------
+
+# aggregates the join route serves: its bounded branch (integer sums and
+# counts over the dimension buckets). min / max / mean / count_distinct
+# and float sums are the general branch, which rests on the sort-based
+# grouped aggregation (the general device GROUP BY, not ported yet); the
+# host engine serves those plans.
+_JOIN_ROUTE_AGGS = ("sum", "count")
+_INT_STYPES = (SType.UINT64, SType.INT64, SType.TIMESTAMP64)
+
+
+def _join_ref(node, expr):
+    """Resolve a join-input ColumnReferenceNode to its
+    (table_idx, column_idx) or None."""
+    if not isinstance(expr, ColumnReferenceNode):
+        return None
+    if expr.column_index is None:
+        return None
+    ref = node.input_map[expr.column_index]
+    return ref.table_idx, ref.column_idx
+
+
+def _rewrite_refs(expr, resolve, side: int):
+    """``expr`` with every column ref replaced by the ref's column in
+    one side's scan output, as ``resolve`` finds it; None if the
+    expression touches the other side or anything but refs, calls and
+    literals."""
+    import copy
+
+    if isinstance(expr, ColumnReferenceNode):
+        r = resolve(expr)
+        if r is None or r[0] != side:
+            return None
+        out = copy.copy(expr)
+        out.column_index = r[1]
+        return out
+    if isinstance(expr, CallExpressionNode):
+        new_args = []
+        for a in expr.args:
+            na = _rewrite_refs(a, resolve, side)
+            if na is None:
+                return None
+            new_args.append(na)
+        out = copy.copy(expr)
+        out.args = new_args
+        return out
+    if isinstance(expr, LiteralExpressionNode):
+        return expr
+    return None
+
+
+def _rewrite_join_refs(node, expr, side: int):
+    """Rewrite a join-input expression to reference one side's output
+    columns directly; returns None if it touches the other side."""
+    return _rewrite_refs(expr, lambda e: _join_ref(node, e), side)
+
+
+def _child_ref(join, expr):
+    """Resolve a GroupBy-child-output ColumnReferenceNode through the
+    join's select list to (table_idx, side_output_column_idx)."""
+    if not isinstance(expr, ColumnReferenceNode):
+        return None
+    if expr.column_index is None:
+        return None
+    if expr.column_index >= len(join.select_list):
+        return None
+    jexpr = join.select_list[expr.column_index].expr
+    return _join_ref(join, jexpr)
+
+
+def _rewrite_child_refs(join, expr, side: int):
+    """Rewrite a GroupBy-child-output expression into one side's output
+    columns (two hops: child output -> join input map -> side output);
+    returns None if it touches the other side or a non-ref join
+    column."""
+    return _rewrite_refs(expr, lambda e: _child_ref(join, e), side)
+
+
+def join_groupby_analysis(node: qn.GroupByNode, txn):
+    """Plan analysis of the fact-dim JOIN + GROUP BY device shape:
+    eligibility, join / group column resolution, host evaluation of the
+    dimension side, aggregate rewrites.
+
+    Returns None when the plan is outside the subset (the host engine
+    takes over): non-INNER joins, multi-conjunction conditions,
+    joined-side WHERE, duplicate / NULL join keys, non-u64 keys,
+    aggregates outside ``_JOIN_ROUTE_AGGS``, empty inputs."""
+    from eventql_tpu_torch.exec.operators import (
+        _factorize_rows,
+        _find_join_conjunctions,
+        _group_key_matrix,
+        _strip_aggregates,
+        execute_node,
+    )
+
+    join = node.table
+    if not isinstance(join, qn.JoinNode):
+        return None
+    if join.join_type != qn.JoinNode.INNER:
+        return None
+    base, joined = join.base_table, join.joined_table
+    for scan in (base, joined):
+        if not isinstance(scan, qn.SequentialScanNode):
+            return None
+        if scan.aggr_strategy != qn.SequentialScanNode.NO_AGGREGATION:
+            return None
+        if scan.keyrange is not None:
+            return None  # partition-scoped: host path applies the range
+    if join.join_cond is None or join.input_map is None:
+        return None
+
+    # exactly one equi conjunction of two bare column refs
+    conjunctions = []
+    _find_join_conjunctions(join, join.join_cond, conjunctions)
+    if len(conjunctions) != 1:
+        return None
+    base_key_expr, joined_key_expr = conjunctions[0]
+    bref = _join_ref(join, base_key_expr)
+    jref = _join_ref(join, joined_key_expr)
+    if bref is None or jref is None or bref[0] != 0 or jref[0] != 1:
+        return None
+    # the join condition must BE that single equality (no residual)
+    cond = join.join_cond
+    if not (isinstance(cond, CallExpressionNode) and cond.function_name == "eq"):
+        return None
+
+    # WHERE must be fact-side only
+    where_base = None
+    if join.where_expr is not None:
+        where_base = _rewrite_join_refs(join, join.where_expr, 0)
+        if where_base is None or not torch_expr.expr_is_device_compatible(
+            where_base
+        ):
+            return None
+
+    # single joined-side group expression (a child-output column ref)
+    if len(node.group_exprs) != 1:
+        return None
+    gref = _child_ref(join, node.group_exprs[0])
+    if gref is None or gref[0] != 1:
+        return None
+
+    # select list: aggregates over fact-side exprs, or the group column
+    entries = []
+    all_aggs = []
+    for sl in node.select_list:
+        if has_aggregate_call(sl.expr):
+            aggs: List[CallExpressionNode] = []
+            emit = _strip_aggregates(sl.expr, aggs)
+            rewritten = []
+            for a in aggs:
+                kind = a.sfunction.aggregate.kind
+                if kind not in _JOIN_ROUTE_AGGS:
+                    return None
+                subj = a.args[0] if a.args else None
+                if kind == "count" or subj is None:
+                    # counts every joined row, NULL args included
+                    # (aggregate.cc:35-38)
+                    rewritten.append((a, "count", None))
+                    continue
+                rsubj = _rewrite_child_refs(join, subj, 0)
+                if rsubj is None or not torch_expr.expr_is_device_compatible(
+                    rsubj
+                ):
+                    return None
+                # u64 accumulation is exact for uint64 and (two's
+                # complement) int64; a float sum is the general branch
+                if (
+                    a.sfunction.return_type not in _INT_STYPES
+                    or rsubj.return_type() not in _INT_STYPES
+                ):
+                    return None
+                rewritten.append((a, kind, rsubj))
+            base_i = len(all_aggs)
+            all_aggs.extend(rewritten)
+            entries.append(("agg", emit, base_i))
+        else:
+            r = _child_ref(join, sl.expr)
+            if r != gref:
+                return None
+            entries.append(("group", None, None))
+
+    # joined side evaluates on host (dimension tables are small)
+    dims = execute_node(joined, txn)
+    dim_key_col = dims.columns[jref[1]]
+    if dim_key_col.stype not in (SType.UINT64, SType.TIMESTAMP64):
+        return None
+    if not dim_key_col.valid.all():
+        return None  # NULL keys join by tag in the host engine
+    dim_keys_h = np.asarray(dim_key_col.data, dtype=np.uint64)
+    if len(np.unique(dim_keys_h)) != len(dim_keys_h):
+        return None  # duplicate dim keys fan out: host path
+
+    # factorize the group column over dim rows -> bucket per dim row
+    group_col = dims.columns[gref[1]]
+    keys = _group_key_matrix([group_col], dims.num_rows)
+    dim_bucket_h, firsts = _factorize_rows(keys)
+
+    # fact side: the key scan-output expr must be a valid-everywhere
+    # u64 column (NULL fact keys join by tag in the host engine)
+    scan = base
+    key_out_expr = scan.select_list[bref[1]].expr
+    if not torch_expr.expr_is_device_compatible(key_out_expr):
+        return None
+    if key_out_expr.return_type() not in (SType.UINT64, SType.TIMESTAMP64):
+        return None
+    table = txn.get_table_data(scan.table_name)
+    if table.num_rows == 0 or dims.num_rows == 0:
+        return None  # empty inputs: host path builds the typed empty
+    if not _scan_inputs_present(table, scan):
+        return None
+    if not isinstance(key_out_expr, ColumnReferenceNode):
+        return None  # only plain key columns prove non-NULL cheaply
+    in_name = scan.input_columns[key_out_expr.column_index][0]
+    if not _column_all_valid(table.columns[table.names.index(in_name)]):
+        return None
+
+    for sl in scan.select_list:
+        if not torch_expr.expr_is_device_compatible(sl.expr):
+            return None
+    if scan.where_expr is not None and not torch_expr.expr_is_device_compatible(
+        scan.where_expr
+    ):
+        return None
+
+    return {
+        "scan": scan,
+        "table": table,
+        "where_base": where_base,
+        "key_input_idx": key_out_expr.column_index,
+        "entries": entries,
+        "all_aggs": all_aggs,
+        "dims": dims,
+        "dim_keys_h": dim_keys_h,
+        "dim_bucket_h": dim_bucket_h,
+        "firsts": firsts,
+        "group_col": group_col,
+    }
+
+
+def _sum_stream(rsubj, scan, in_cols, scan_cols, n, device):
+    """(tensor, value_bits, unsigned) of one summed fact-side expression.
+    A bare reference to a stored integer column goes to the kernel as
+    its narrowed stream: an unsigned one contributes its stored bits, a
+    signed one sign-extends in the kernel's load. Anything else is
+    evaluated to an int64 column."""
+    if isinstance(rsubj, ColumnReferenceNode):
+        src = scan.select_list[rsubj.column_index].expr
+        if isinstance(src, ColumnReferenceNode) and src.column_index is not None:
+            dc = in_cols[src.column_index]
+            if dc.stype in _INT_STYPES:
+                if torch_expr.is_unsigned(dc.stype):
+                    return dc.data, 8 * dc.data.element_size(), True
+                return dc.data, 64, False
+    c = torch_expr.compile_expr(rsubj, scan_cols, n, device)
+    return c.data.expand(n).to(torch.int64).contiguous(), 64, False
+
+
+# rows searched for each bucket's first surviving row before the
+# result is read back; the rest only if a bucket has none among them
+FIRST_ROWS_PREFIX = 1 << 22
+
+
+def _first_rows(gid, mask, lo: int, hi: int, K: int, n: int) -> torch.Tensor:
+    """int64[K]: per bucket the lowest row in [lo, hi) that found its
+    dimension row and passed the mask, or ``n`` where there is none."""
+    g = gid[lo:hi]
+    ok = g >= 0
+    if mask is not None:
+        ok &= mask[lo:hi]
+    rows = torch.nonzero(ok).flatten()
+    first = torch.full((K,), n, dtype=torch.int64, device=gid.device)
+    return first.scatter_reduce_(0, g[rows].to(torch.int64), rows + lo, "amin")
+
+
+def try_execute_device_join_groupby(
+    node: qn.GroupByNode, txn
+) -> Optional[Relation]:
+    """SELECT <group>, aggs(fact exprs) FROM facts JOIN dims ON
+    f.k = d.k [WHERE fact-side predicate] GROUP BY <dim column> on the
+    device: scan + filter in torch_expr, the join probe kernel
+    (kernels/join.py: the shared-memory table up to MAX_COMPARE_DIMS
+    dimension rows, the sorted table in global memory above), then the
+    grouped aggregate kernel over the dimension buckets. No join pair
+    materialises. Returns None when the plan is outside the subset (the
+    host engine takes over): see join_groupby_analysis.
+
+    The reference executes this shape as HashJoin feeding GroupBy
+    (hash_join.cc + groupby.cc), row-at-a-time."""
+    from eventql_tpu_torch.exec.vector_eval import EvalContext, evaluate_vector
+    from eventql_tpu_torch.kernels.join import join_gid
+    from eventql_tpu_torch.kernels.sort import read_host
+
+    plan = join_groupby_analysis(node, txn)
+    if plan is None:
+        return None
+    global JOIN_GROUPBY_COUNT
+    JOIN_GROUPBY_COUNT += 1
+    scan, table = plan["scan"], plan["table"]
+    all_aggs, firsts = plan["all_aggs"], plan["firsts"]
+    device = txn.device
+    n = table.num_rows
+    K = len(firsts)
+
+    in_cols = _to_device_cols(
+        table.columns, table.names, scan.input_columns, device
+    )
+    scan_cols = _LazyScanCols(scan, in_cols, n, device)
+    mask = None
+    for where, cols in ((scan.where_expr, in_cols), (plan["where_base"], scan_cols)):
+        if where is not None:
+            m = torch_expr.compile_expr(where, cols, n, device).data.expand(n)
+            mask = m if mask is None else mask & m
+    if mask is not None:
+        mask = mask.contiguous()
+
+    # the probe: the fact key column as stored (narrowed streams
+    # zero-extend in the kernel), the dimension side from the host
+    gid = join_gid(
+        in_cols[plan["key_input_idx"]].data,
+        _to_tensor(plan["dim_keys_h"], device),
+        _to_tensor(plan["dim_bucket_h"].astype(np.int32), device),
+        n,
+    )
+
+    # the aggregate: rows without a dimension match carry gid -1, which
+    # lies outside [0, K), so the kernels drop them themselves. Every
+    # sum has a stream of its own.
+    sums = [
+        _sum_stream(rsubj, scan, in_cols, scan_cols, n, device)
+        for _a, kind, rsubj in all_aggs
+        if kind == "sum"
+    ]
+    if len(sums) <= 1:
+        v, bits, uns = sums[0] if sums else (None, 64, False)
+        out = kernels.groupby_agg(
+            gid, n, K, values=v, value_bits=bits, mask=mask, values_unsigned=uns
+        )
+    elif len(sums) <= kernels.MAX_SUMS:
+        out = kernels.groupby_multi_agg(
+            gid, n, K, [s[0] for s in sums], [s[1] for s in sums], mask=mask,
+            streams_unsigned=[s[2] for s in sums],
+        )
+    else:
+        # more sums than the kernel has streams: index_add_ on int64,
+        # as the GROUP BY route sends its leftover multi-sum shapes
+        wide = [
+            v.to(torch.int64) & ((1 << bits) - 1) if uns and bits < 64
+            else v.to(torch.int64)
+            for v, bits, uns in sums
+        ]
+        ones = torch.ones(n, dtype=torch.bool, device=device)
+        counts, outs = _index_add_aggregate(
+            ones if mask is None else mask, gid, wide, ["sum"] * len(wide), K
+        )
+        out = torch.stack([counts, *outs])
+
+    # presentation order: the first surviving base row of each bucket
+    # (an inner join on unique dim keys pairs a fact row at most once,
+    # so the host's first surviving pair is the bucket's smallest row).
+    # Nearly every bucket shows up early, so only a prefix of the table
+    # is searched before the readback.
+    head = min(n, FIRST_ROWS_PREFIX)
+    first = _first_rows(gid, mask, 0, head, K, n)
+
+    # ONE device->host copy: counts, one row per sum, first rows
+    packed_h = read_host(torch.cat([out, first[None]]))
+    counts_h, first_h = packed_h[0], packed_h[-1]
+    occupied = np.nonzero(counts_h > 0)[0]
+    if (first_h[occupied] == n).any():
+        # a bucket whose rows all lie beyond the prefix: search the rest
+        # of the table too, at the price of a second readback
+        first_h = np.minimum(
+            first_h, read_host(_first_rows(gid, mask, head, n, K, n))
+        )
+    buckets = occupied[np.argsort(first_h[occupied], kind="stable")]
+    ng = len(buckets)
+
+    agg_cols: List[Column] = []
+    next_sum = 1
+    for a, kind, _rsubj in all_aggs:
+        rtype = a.sfunction.return_type
+        if kind == "count":
+            data = counts_h[buckets]
+        else:
+            data = packed_h[next_sum][buckets]
+            next_sum += 1
+        agg_cols.append(
+            Column(rtype, data.astype(dtype_for(rtype)), np.ones(ng, bool))
+        )
+    group_out = plan["group_col"].gather(firsts[buckets])
+
+    out_cols: List[Column] = []
+    for tag, expr, base_i in plan["entries"]:
+        if tag == "agg":
+            out_cols.append(evaluate_vector(expr, EvalContext(agg_cols[base_i:], ng)))
+        else:
+            out_cols.append(group_out)
+    names = [sl.column_name() for sl in node.select_list]
+    return Relation(names, out_cols, ng)

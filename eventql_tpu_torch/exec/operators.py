@@ -9,9 +9,10 @@ loops (see SURVEY.md Appendix A).
 
 This is the port's own copy of the host engine. It is the semantic
 reference of the CUDA routes (exec/device_exec.py: GROUP BY sum/count,
-ORDER BY, ORDER BY ... LIMIT) and serves every plan the routes decline.
+fact-dim JOIN + GROUP BY sum/count, ORDER BY, ORDER BY ... LIMIT) and
+serves every plan the routes decline.
 Tiers that are not ported yet (partitioned, cluster and mesh providers,
-the join device route, the general device GROUP BY, the query cache, charts, nested scans) raise
+the general device GROUP BY, the query cache, charts, nested scans) raise
 RuntimeError_ naming what is missing instead of being silently skipped.
 """
 
@@ -490,14 +491,18 @@ def _exec_group_by(node: qn.GroupByNode, txn) -> Relation:
         raise _not_ported("query cache (exec.query_cache)")
 
     if getattr(txn, "device", None) is not None:
-        # the CUDA route; None -> shape not routable (join input,
-        # min/max/mean aggregates, unbounded keys: device routes of
-        # later slices), the host engine below serves it
+        # the CUDA routes; None -> shape not routable (min/max/mean
+        # aggregates, unbounded keys: the general device GROUP BY, not
+        # ported yet), the host engine below serves it
         from eventql_tpu_torch.exec.device_exec import (
+            try_execute_device_join_groupby,
             try_execute_string_groupby,
         )
 
         result = try_execute_string_groupby(node, txn)
+        if result is not None:
+            return result
+        result = try_execute_device_join_groupby(node, txn)
         if result is not None:
             return result
 

@@ -1,0 +1,309 @@
+"""Device hash-join kernels (fact-dim join + aggregate).
+
+The counterpart of eventql_tpu/kernels/join.py. The reference's hash
+join builds a CPU multimap over the joined table and probes per row
+(reference: sql/statements/select/hash_join.cc:29-33, 123-230); here the
+probe runs on the card and no join pair ever materialises: each fact
+row gets the bucket of its dimension row (or -1), and the grouped
+aggregate kernel (kernels/groupby_agg.py) takes that as its key.
+
+The two TPU kernels and their ports (``csrc/join.cu``):
+
+* ``dim_join_gid`` replaces ``_join_kernel`` / ``pallas_dim_join_gid``:
+  at most ``MAX_COMPARE_DIMS`` dimension rows, held as a hash table in
+  each block's shared memory, built in the kernel from the unsorted
+  rows. It has no fingerprint precondition.
+* ``probe_join_gid`` replaces ``_window_join_kernel`` /
+  ``_window_join_pallas`` (reached through ``merge_join_gid``): any
+  number of dimension rows, sorted by key outside the kernel
+  (``build_side``) and searched in global memory. Facts are probed in
+  row order, not sorted first.
+
+Both compare all 64 bits of the key and return the whole int32 bucket.
+Both are bound by bytes: the fact key read once at its stored width,
+one int32 written per row, the dimension table read once.
+
+Keys are unsigned 64-bit integers carried as int64 bit patterns
+(kernels/groupby.py). A fact key stream may also be the int32 / int16
+tensor of a physically narrowed unsigned column; kernels and plain
+versions zero-extend it. Sorted keys are bit patterns in ascending
+*unsigned* order; the torch ops below sort and search ``key ^ (1 << 63)``.
+
+Each wrapper launches its kernel for CUDA tensors and uses the plain
+PyTorch version (``*_plain``: ``build_side`` + ``dim_join_gather`` + a
+bucket gather) for CPU tensors only. ``LAUNCHES`` counts kernel launches
+per wrapper.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from eventql_tpu_torch.kernels import _build
+from eventql_tpu_torch.kernels.groupby_agg import groupby_agg
+
+# kernel launches per wrapper (plain-version calls do not count)
+LAUNCHES = {"dim_join_gid": 0, "probe_join_gid": 0}
+
+# tier boundary: up to here the dimension side fits the shared-memory
+# hash table of dim_join_gid (16384 slots at a load of one half); above
+# it probe_join_gid searches the sorted side in global memory
+MAX_COMPARE_DIMS = 8192
+
+_SIGN = -(1 << 63)  # int64 with only the top bit set
+_DT_U16, _DT_U32, _DT_U64 = 1, 2, 3
+_KEY_DT = {torch.int16: _DT_U16, torch.int32: _DT_U32, torch.int64: _DT_U64}
+
+
+def _u64_bits(keys: torch.Tensor) -> torch.Tensor:
+    """A key stream as int64 bit patterns (narrow streams zero-extend)."""
+    if keys.dtype == torch.int64:
+        return keys
+    return keys.to(torch.int64) & ((1 << (8 * keys.element_size())) - 1)
+
+
+# -- torch-op functions (what the plain versions are made of) -----------------
+
+
+def build_side(keys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sort the build side: returns (sorted keys, perm). The keys come
+    back as bit patterns in ascending unsigned order; the sort is
+    stable, so equal keys keep their row order."""
+    k = _u64_bits(keys)
+    sk, perm = torch.sort(k ^ _SIGN, stable=True)
+    return sk ^ _SIGN, perm
+
+
+def probe_ranges(sorted_keys: torch.Tensor, probe_keys: torch.Tensor):
+    """For each probe key: (start, count) of its match range in the
+    sorted build side."""
+    sk = sorted_keys ^ _SIGN
+    pk = _u64_bits(probe_keys) ^ _SIGN
+    start = torch.searchsorted(sk, pk, right=False)
+    end = torch.searchsorted(sk, pk, right=True)
+    return start, end - start
+
+
+def dim_join_gather(
+    sorted_keys: torch.Tensor, perm: torch.Tensor, probe_keys: torch.Tensor
+):
+    """Unique-key join: per probe row, the build row index (or -1), and
+    whether it matched. Among equal build keys the first in sorted
+    order is taken."""
+    pk = _u64_bits(probe_keys)
+    if sorted_keys.shape[0] == 0:
+        return (
+            torch.full(pk.shape, -1, dtype=torch.int64, device=pk.device),
+            torch.zeros(pk.shape, dtype=torch.bool, device=pk.device),
+        )
+    pos = torch.searchsorted(sorted_keys ^ _SIGN, pk ^ _SIGN, right=False)
+    pos = pos.clamp(0, sorted_keys.shape[0] - 1)
+    matched = sorted_keys[pos] == pk
+    return torch.where(matched, perm[pos], -1), matched
+
+
+def _gather_gid(dim_bucket, idx, matched, fact_mask):
+    safe_idx = torch.where(matched, idx, 0)
+    gid = dim_bucket[safe_idx].to(torch.int32)
+    return gid, fact_mask & matched
+
+
+# -- the probe kernels --------------------------------------------------------
+
+
+def _checked(fact_keys, dim_keys, dim_bucket, n, max_dims=(1 << 31) - 1):
+    if fact_keys.dim() != 1 or not fact_keys.is_contiguous():
+        raise ValueError("fact_keys: need a contiguous 1-d tensor")
+    if fact_keys.dtype not in _KEY_DT:
+        raise TypeError(
+            f"fact_keys: need int64 bit patterns or a narrowed int32 / int16"
+            f" stream, got {fact_keys.dtype}"
+        )
+    n = fact_keys.shape[0] if n is None else int(n)
+    if not 0 <= n <= fact_keys.shape[0]:
+        raise ValueError(f"n = {n} outside the key stream's {fact_keys.shape[0]} rows")
+    if dim_keys.dim() != 1 or not dim_keys.is_contiguous() or dim_keys.dtype != torch.int64:
+        raise TypeError("dimension keys: need a contiguous 1-d int64 tensor (u64 bits)")
+    if (
+        dim_bucket.dim() != 1
+        or not dim_bucket.is_contiguous()
+        or dim_bucket.dtype != torch.int32
+        or dim_bucket.shape[0] != dim_keys.shape[0]
+    ):
+        raise TypeError("dimension buckets: need contiguous int32, one per key")
+    if dim_keys.device != fact_keys.device or dim_bucket.device != fact_keys.device:
+        raise ValueError("fact and dimension tensors lie on different devices")
+    if dim_keys.shape[0] > max_dims:
+        raise ValueError(f"{dim_keys.shape[0]} dimension rows: at most {max_dims}")
+    return n
+
+
+def _plain(fact_keys, n, sorted_keys, perm, dim_bucket):
+    idx, matched = dim_join_gather(sorted_keys, perm, fact_keys[:n])
+    if dim_bucket.shape[0] == 0:
+        return torch.full((n,), -1, dtype=torch.int32, device=fact_keys.device)
+    return torch.where(matched, dim_bucket[idx.clamp(min=0)], -1).to(torch.int32)
+
+
+def dim_join_gid_plain(fact_keys, dim_keys, dim_bucket, n=None):
+    """Plain PyTorch version of ``dim_join_gid`` on the tensors' device."""
+    n = _checked(fact_keys, dim_keys, dim_bucket, n, MAX_COMPARE_DIMS)
+    sk, perm = build_side(dim_keys)
+    return _plain(fact_keys, n, sk, perm, dim_bucket)
+
+
+def probe_join_gid_plain(fact_keys, sorted_dim_keys, sorted_dim_bucket, n=None):
+    """Plain PyTorch version of ``probe_join_gid``."""
+    n = _checked(fact_keys, sorted_dim_keys, sorted_dim_bucket, n)
+    perm = torch.arange(sorted_dim_keys.shape[0], device=fact_keys.device)
+    return _plain(fact_keys, n, sorted_dim_keys, perm, sorted_dim_bucket)
+
+
+_lib_ready = False
+
+
+def _lib():
+    global _lib_ready
+    lib = _build.load("join")
+    if not _lib_ready:
+        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for fn in (lib.evql_dim_join_gid, lib.evql_probe_join_gid):
+            fn.argtypes = [vp, ci, cll, vp, vp, ci, vp, vp]
+            fn.restype = ci
+        _lib_ready = True
+    return lib
+
+
+def _launch(name, fact_keys, n, dim_keys, dim_bucket):
+    device = fact_keys.device
+    if n == 0 or dim_keys.shape[0] == 0:
+        # nothing to probe, or nothing to find: no launch
+        return torch.full((n,), -1, dtype=torch.int32, device=device)
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        rc = getattr(_lib(), "evql_" + name)(
+            fact_keys.data_ptr(), _KEY_DT[fact_keys.dtype], n,
+            dim_keys.data_ptr(), dim_bucket.data_ptr(), dim_keys.shape[0],
+            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+    LAUNCHES[name] += 1
+    return out
+
+
+def dim_join_gid(
+    fact_keys: torch.Tensor,
+    dim_keys: torch.Tensor,
+    dim_bucket: torch.Tensor,
+    n: Optional[int] = None,
+) -> torch.Tensor:
+    """Per fact row < ``n``: the bucket of the dimension row whose key is
+    equal, or -1 when no dimension key is. At most ``MAX_COMPARE_DIMS``
+    dimension rows, in any order. Duplicate dimension keys are not an
+    error: the lowest dimension row wins. An empty dimension table gives
+    all -1.
+
+    fact_keys: int64 (u64 bits) or a narrowed int32 / int16 stream
+    [>= n]; dim_keys: int64 [D]; dim_bucket: int32 [D]; returns
+    int32 [n]."""
+    if not fact_keys.is_cuda:
+        return dim_join_gid_plain(fact_keys, dim_keys, dim_bucket, n)
+    n = _checked(fact_keys, dim_keys, dim_bucket, n, MAX_COMPARE_DIMS)
+    return _launch("dim_join_gid", fact_keys, n, dim_keys, dim_bucket)
+
+
+def probe_join_gid(
+    fact_keys: torch.Tensor,
+    sorted_dim_keys: torch.Tensor,
+    sorted_dim_bucket: torch.Tensor,
+    n: Optional[int] = None,
+) -> torch.Tensor:
+    """Per fact row < ``n``, in row order: the bucket of the equal key
+    in a dimension table of any size, or -1. The dimension keys must be
+    ascending in unsigned order (``build_side``) with the buckets in the
+    same order; nothing checks that, and an unsorted table gives misses.
+    Among duplicate dimension keys the first in sorted order wins (the
+    lowest dimension row, after the stable ``build_side``). An empty
+    dimension table gives all -1.
+
+    Shapes and types as ``dim_join_gid``."""
+    if not fact_keys.is_cuda:
+        return probe_join_gid_plain(fact_keys, sorted_dim_keys, sorted_dim_bucket, n)
+    n = _checked(fact_keys, sorted_dim_keys, sorted_dim_bucket, n)
+    return _launch("probe_join_gid", fact_keys, n, sorted_dim_keys, sorted_dim_bucket)
+
+
+def join_gid(fact_keys, dim_keys, dim_bucket, n=None) -> torch.Tensor:
+    """The probe by tier, chosen from the dimension count alone: up to
+    ``MAX_COMPARE_DIMS`` rows ``dim_join_gid``, above it ``build_side``
+    and ``probe_join_gid``."""
+    if dim_keys.shape[0] <= MAX_COMPARE_DIMS:
+        return dim_join_gid(fact_keys, dim_keys, dim_bucket, n)
+    sk, perm = build_side(dim_keys)
+    return probe_join_gid(fact_keys, sk, dim_bucket[perm].contiguous(), n)
+
+
+# -- aggregate entry points ---------------------------------------------------
+
+
+def _aggregate(gid, fact_values, fact_mask, num_buckets, value_bits):
+    # rows whose gid is -1 (no dimension match) fall outside [0, K) and
+    # the aggregate kernel drops them itself: no `mask & (gid >= 0)` pass
+    out = groupby_agg(
+        gid, gid.shape[0], num_buckets, values=fact_values.contiguous(),
+        value_bits=value_bits, mask=fact_mask,
+    )
+    return out[0], out[1]
+
+
+def fact_dim_join_aggregate(
+    fact_keys: torch.Tensor,
+    fact_values: torch.Tensor,
+    fact_mask: Optional[torch.Tensor],
+    dim_keys: torch.Tensor,
+    dim_bucket: torch.Tensor,
+    num_buckets: int,
+):
+    """SELECT d.bucket, count(*), sum(f.value)
+       FROM fact f JOIN dim d ON f.key = d.key [WHERE mask]
+       GROUP BY d.bucket
+
+    dim_bucket must be int32 in [0, num_buckets). Unmatched fact rows
+    drop (inner join). Returns (counts, sums), each int64[K] holding u64
+    bit patterns; sums are exact mod 2^64."""
+    gid = join_gid(fact_keys, dim_keys, dim_bucket)
+    return _aggregate(gid, fact_values, fact_mask, num_buckets, 64)
+
+
+def sorted_merge_join_aggregate(
+    fact_keys: torch.Tensor,
+    fact_values: torch.Tensor,
+    fact_mask: Optional[torch.Tensor],
+    dim_keys: torch.Tensor,
+    dim_bucket: torch.Tensor,
+    num_buckets: int,
+    block: Optional[int] = None,
+    window: Optional[int] = None,
+    value_bits: int = 64,
+    key_bound=None,
+):
+    """fact-dim join + GROUP BY aggregate for a dimension table of any
+    size: the dimension side is sorted (``build_side``), every fact row
+    is probed against it in row order (``probe_join_gid``), and the
+    grouped aggregate kernel takes the buckets.
+
+    The signature is the JAX function's. ``block``, ``window`` and
+    ``key_bound`` only shaped the TPU's sort of the fact side and its
+    windowed merge; the facts are not sorted here, so they are accepted
+    and have no effect. ``value_bits`` bounds the value width as there:
+    the sum takes the low ``value_bits`` of each value (rounded up to
+    whole bytes).
+
+    Returns (counts, sums) as ``fact_dim_join_aggregate``."""
+    sk, perm = build_side(dim_keys)
+    gid = probe_join_gid(fact_keys, sk, dim_bucket[perm].contiguous())
+    return _aggregate(gid, fact_values, fact_mask, num_buckets, value_bits)

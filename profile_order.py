@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Where the device time of the port's ORDER BY queries goes.
+"""Where the device time of the port's ORDER BY and JOIN queries goes.
 
     python3 profile_order.py     # from the root of the checkout; no arguments
 
 Needs one CUDA device and nvcc. Builds the table of chip_smoke.py at its
-size (chip_smoke.N_ROWS), runs each of its ORDER BY queries until warm, then once more under
+size (chip_smoke.N_ROWS), runs each of its ORDER BY queries and of its
+routed JOIN + GROUP BY queries until warm, then once more under
 torch.profiler, and prints per query: the wall time of the profiled
 run, the summed device time, the device's idle share of the wall time,
-and the device time by kernel name (the largest first). The profiler
+and the device time by kernel name (the largest first); for a join query
+also the host time its plan analysis took in that run (the dimension
+side is evaluated on the host there). The profiler
 slows the host side, so the wall time here is not the query's latency
 (chip_smoke.py reports that); the split of the device time is the point.
 """
@@ -20,6 +23,7 @@ import time
 import torch
 
 import chip_smoke
+from eventql_tpu_torch.exec import device_exec
 from eventql_tpu_torch.exec.runtime import PlanCache, Runtime
 from eventql_tpu_torch.kernels import _build
 
@@ -31,7 +35,8 @@ def _short(kernel_name):
     name = name.split("<")[0].split("(")[0].replace("void ", "")
     functor = ""
     for part in ("bitwise", "BUnaryFunctor", "AUnaryFunctor", "direct_copy",
-                 "compare", "where", "index", "RadixSort", "reduce"):
+                 "compare", "where", "index", "RadixSort", "reduce", "scatter",
+                 "nonzero", "flag", "Select"):
         if part in kernel_name:
             functor = f" [{part}]"
             break
@@ -50,12 +55,26 @@ def main():
         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     _build.build_all()
     cols, dictionary = chip_smoke.make_table(n, seed=42)
-    provider = chip_smoke.provider_of(cols, dictionary, n)
+    dims = chip_smoke.make_dims(seed=43)
+    provider = chip_smoke.add_dims(chip_smoke.provider_of(cols, dictionary, n), dims)
     rt = Runtime(plan_cache=PlanCache(), device=device)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for name, sql, *_rest in chip_smoke.order_queries(cols, dictionary, n):
+    # the join route's plan analysis, on the host clock
+    analysis_ms = []
+    analyse = device_exec.join_groupby_analysis
+
+    def timed_analysis(node, txn):
+        t = time.perf_counter()
+        plan = analyse(node, txn)
+        analysis_ms.append((time.perf_counter() - t) * 1e3)
+        return plan
+
+    device_exec.join_groupby_analysis = timed_analysis
+    queries = chip_smoke.order_queries(cols, dictionary, n) + [
+        q for q in chip_smoke.join_queries(cols, dims, n) if q[-1] is not None]
+    for name, sql, *_rest in queries:
         for _ in range(3):
             chip_smoke.run_query(rt, provider, sql)
         torch.cuda.synchronize()
@@ -76,12 +95,15 @@ def main():
                 by_kernel[key] = by_kernel.get(key, 0.0) + dev_us / 1e3
         device_ms = sum(by_kernel.values())
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
-        print(json.dumps({
+        out = {
             "query": name, "rows": n, "profiled_wall_ms": wall_ms,
             "device_ms": device_ms,
             "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
             "device_ms_by_kernel": {k: round(v, 4) for k, v in top},
-        }), flush=True)
+        }
+        if name.startswith("join"):
+            out["host_plan_analysis_ms"] = analysis_ms[-1]
+        print(json.dumps(out), flush=True)
 
 
 if __name__ == "__main__":

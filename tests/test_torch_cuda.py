@@ -8,8 +8,8 @@ Everywhere else these tests skip (the decision is made inside the
 fixture, at run time). They drive the same cases as chip_smoke.py's
 phases 3, 4 and 5 at a small size: every kernel wrapper against its plain
 PyTorch version on CUDA tensors, and the SQL routes on the card (GROUP BY
-sum/count, ORDER BY, ORDER BY ... LIMIT) against numpy and the port's
-host engine. Tolerance: exact equality.
+sum/count, ORDER BY, ORDER BY ... LIMIT, fact-dim JOIN + GROUP BY)
+against numpy and the port's host engine. Tolerance: exact equality.
 """
 
 import os
@@ -22,6 +22,10 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 pytestmark = pytest.mark.cuda
+
+
+KERNELS = {"groupby_agg", "groupby_multi_agg", "extract_ge", "dim_join_gid",
+           "probe_join_gid"}
 
 
 @pytest.fixture
@@ -37,7 +41,7 @@ def test_kernels_equal_plain_versions_on_the_card(cuda_device):
     before = chip_smoke.launch_counts()
     chip_smoke.phase_kernels(cuda_device, 200_003)
     after = chip_smoke.launch_counts()
-    assert set(after) == {"groupby_agg", "groupby_multi_agg", "extract_ge"}
+    assert set(after) == KERNELS
     assert all(after[k] > before[k] for k in before)
 
 
@@ -55,10 +59,76 @@ def test_sql_route_on_the_card_equals_host_engine(cuda_device):
     assert per_query["topk_v_desc_ties"] == {"groupby_agg": 2}
     assert run["launches_by_path"]["order_by"]["extract_ge"] == 2 * 2
     assert run["e2e"]["topk_ts_desc"]["readbacks"] == 3
+    assert per_query["join_small_dim"] == {"dim_join_gid": 1, "groupby_agg": 1}
+    assert per_query["join_small_dim_two_sums"] == {
+        "dim_join_gid": 1, "groupby_multi_agg": 1}
+    assert per_query["join_big_dim"] == {"probe_join_gid": 1, "groupby_agg": 1}
+    assert run["launches_by_path"]["join"]["dim_join_gid"] == 3 * 2
+    assert run["e2e"]["join_big_dim"]["readbacks"] == 1
     # each recorded call, repeated: kernel and plain version agree
     times = chip_smoke.phase_times(cuda_device, run["calls"])
-    assert set(times) == {"groupby_agg", "groupby_multi_agg", "extract_ge"}
+    assert set(times) == KERNELS
     assert all(t["max_abs_err"] == 0 for t in times.values())
+
+
+@pytest.mark.parametrize("n_dims", [1, 1024, 8192, 8193, 1 << 18])
+@pytest.mark.parametrize("width", [16, 32, 64])
+def test_join_probes_equal_plain_versions_at_4m_rows(cuda_device, n_dims, width):
+    """Both probes against their plain versions at 2^22 fact rows, for
+    each stored width of the fact key stream; keys with the top bit of
+    their width set, two rows in three a hit."""
+    from eventql_tpu_torch.kernels import join as tjoin
+
+    n = 1 << 22
+    rng = np.random.default_rng(n_dims + width)
+    n_dims = min(n_dims, 1 << (width - 1))
+    dims = rng.choice(1 << min(width, 40), n_dims, replace=False).astype(np.uint64)
+    dims <<= np.uint64(width - min(width, 40))
+    bucket = rng.integers(0, 1 << 20, n_dims).astype(np.int32)
+    hit = dims[rng.integers(0, n_dims, n)]
+    miss = rng.integers(0, 1 << (width - 1), n).astype(np.uint64)
+    fact = np.where(rng.random(n) < 0.67, hit, miss)
+    signed = {16: np.int16, 32: np.int32, 64: np.int64}[width]
+    f = torch.from_numpy(fact.astype(f"uint{width}").view(signed)).to(cuda_device)
+    dk = torch.from_numpy(dims.view(np.int64)).to(cuda_device)
+    db = torch.from_numpy(bucket).to(cuda_device)
+    before = dict(tjoin.LAUNCHES)
+    sk, perm = tjoin.build_side(dk)
+    sb = db[perm].contiguous()
+    got = tjoin.probe_join_gid(f, sk, sb, n - 3)
+    assert torch.equal(got, tjoin.probe_join_gid_plain(f, sk, sb, n - 3))
+    assert 0 < int((got >= 0).sum()) < n
+    assert tjoin.LAUNCHES["probe_join_gid"] == before["probe_join_gid"] + 1
+    if n_dims <= tjoin.MAX_COMPARE_DIMS:
+        got = tjoin.dim_join_gid(f, dk, db, n - 3)
+        assert torch.equal(got, tjoin.dim_join_gid_plain(f, dk, db, n - 3))
+        assert tjoin.LAUNCHES["dim_join_gid"] == before["dim_join_gid"] + 1
+    else:
+        with pytest.raises(ValueError):
+            tjoin.dim_join_gid(f, dk, db)
+
+
+def test_join_query_on_the_card_equals_host_engine(cuda_device):
+    """One join query through Runtime(device="cuda"): the rows and
+    their order equal the host engine's, and the route was taken."""
+    import chip_smoke
+    from eventql_tpu_torch.exec import device_exec
+    from eventql_tpu_torch.exec.runtime import Runtime
+    from eventql_tpu_torch.kernels import join as tjoin
+
+    n = 1 << 20
+    cols, dictionary = chip_smoke.make_table(n, seed=5)
+    provider = chip_smoke.add_dims(
+        chip_smoke.provider_of(cols, dictionary, n), chip_smoke.make_dims(seed=6))
+    sql = ("select d2.region, sum(t.v), sum(t.v + 1), count(1) from t join d2 on"
+           " t.dk2 = d2.k where t.w < 900000 group by d2.region;")
+    before = device_exec.JOIN_GROUPBY_COUNT, tjoin.LAUNCHES["probe_join_gid"]
+    got = chip_smoke.run_query(Runtime(device=cuda_device), provider, sql).rows
+    assert (device_exec.JOIN_GROUPBY_COUNT, tjoin.LAUNCHES["probe_join_gid"]) == (
+        before[0] + 1, before[1] + 1)
+    want = chip_smoke.run_query(Runtime(device=None), provider, sql).rows
+    assert got == want and len(got) == chip_smoke.N_REGIONS
+    assert all(r[1] != r[2] for r in got)
 
 
 def test_topk_ties_on_the_card(cuda_device):
@@ -94,3 +164,10 @@ def test_cuda_tensor_without_library_raises(cuda_device, monkeypatch, tmp_path):
     monkeypatch.setattr(ex, "_lib_ready", False)
     with pytest.raises(_build.KernelBuildError):
         ex.extract_ge(gid, 0, 4)
+    from eventql_tpu_torch.kernels import join as tjoin
+
+    monkeypatch.setattr(tjoin, "_lib_ready", False)
+    keys = torch.zeros(16, dtype=torch.int64, device=cuda_device)
+    for probe in (tjoin.dim_join_gid, tjoin.probe_join_gid):
+        with pytest.raises(_build.KernelBuildError):
+            probe(keys, keys[:4].contiguous(), gid[:4].contiguous())

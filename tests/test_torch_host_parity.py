@@ -138,6 +138,14 @@ QUERIES = [
     " users.user_id where age > 60 order by users.user_id, value limit 12;",
     "select name, age, value from ev natural join users order by time limit 6;",
     "select count(1) from ev, users where ev.user_id = users.user_id and age < 30;",
+    # join + GROUP BY on a joined-side column (the shape of the device
+    # join route; here both packages' host engines serve it)
+    "select age, count(1), sum(value), sum(value + 1) from ev join users on"
+    " ev.user_id = users.user_id group by age;",
+    "select name, sum(value), sum(delta) from ev join users on ev.user_id ="
+    " users.user_id where value < 700 group by name;",
+    "select name, min(value), max(temp), mean(delta) from ev join users on"
+    " ev.user_id = users.user_id group by name order by name;",
     # metadata statements
     "show tables;",
     "describe ev;",
@@ -158,6 +166,25 @@ def test_host_engines_agree(query):
         assert g.columns == w.columns
         assert g.rows == w.rows
         assert len(g.rows) > 0 or "offset" in query
+
+
+@pytest.mark.parametrize("query", [q for q in QUERIES if " join " in q and "group by" in q])
+def test_join_route_agrees_with_the_jax_host_engine(query):
+    """The same join + GROUP BY queries with the port on device="cpu":
+    the integer sum / count ones take the join route (through the
+    kernels' plain versions), the others fall through to the host
+    engine; either way rows and their order are the JAX host engine's."""
+    from eventql_tpu_torch.exec import device_exec
+
+    pj, pt = _providers()
+    rj = Runtime()
+    rt = TorchRuntime(device="cpu")
+    want = rj.execute_query(rj.new_transaction(pj), query)[0]
+    before = device_exec.JOIN_GROUPBY_COUNT
+    got = rt.execute_query(rt.new_transaction(pt), query)[0]
+    assert (got.columns, got.rows) == (want.columns, want.rows)
+    routable = not any(f in query for f in ("min(", "max(", "mean("))
+    assert device_exec.JOIN_GROUPBY_COUNT - before == (1 if routable else 0)
 
 
 ERRORS = [

@@ -54,6 +54,26 @@ res = rt.build_query_plan(
 assert [int(r[0]) for r in res.rows] == sorted(
     int(x) for x in rel.columns[1].data if x < 10)
 assert (device_exec.SCAN_TOPK_COUNT, device_exec.SCAN_ORDER_COUNT) == (1, 1)
+m = 16
+p.add_table("d", relation_from_numpy(
+    ["k", "g"],
+    [
+        (SType.UINT64, (np.arange(m) * 50).astype(np.uint64), np.ones(m, bool), None),
+        (SType.UINT64, (np.arange(m) % 3).astype(np.uint64), np.ones(m, bool), None),
+    ],
+))
+res = rt.build_query_plan(
+    rt.new_transaction(p),
+    "select d.g, count(1), sum(t.v), sum(t.v + 1) from t join d on t.v = d.k"
+    " group by d.g order by d.g;",
+).execute(0)
+v = rel.columns[1].data
+hit = (v % 50 == 0) & (v // 50 < m)
+assert [[int(x) for x in r] for r in res.rows] == [
+    [g, int((hit & (v // 50 % 3 == g)).sum()),
+     int(v[hit & (v // 50 % 3 == g)].sum()),
+     int((v[hit & (v // 50 % 3 == g)] + 1).sum())] for g in range(3)], res.rows
+assert device_exec.JOIN_GROUPBY_COUNT == 1
 
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "jaxlib" or m == "eventql_tpu" or m.startswith("eventql_tpu.")]
@@ -72,9 +92,13 @@ for make in (lambda: Runtime(), lambda: Runtime(device="cuda"),
 
 # a CUDA tensor is never served by the plain version: without a card
 # the tensor cannot even be made, and the wrapper has no other path
-from eventql_tpu_torch.kernels import extract, groupby, groupby_agg, sort
+from eventql_tpu_torch.kernels import extract, groupby, groupby_agg, join, sort
 assert groupby_agg.LAUNCHES == {"groupby_agg": 0, "groupby_multi_agg": 0}
 assert extract.LAUNCHES == {"extract_ge": 0}
+assert join.LAUNCHES == {"dim_join_gid": 0, "probe_join_gid": 0}
+keys = torch.tensor([7, -1, 9, 8])
+assert join.join_gid(keys, torch.tensor([9, -1]), torch.tensor([4, 5], dtype=torch.int32)
+                     ).tolist() == [-1, 5, 4, -1]
 key = groupby.sortable_u64(torch.tensor([3, -1, 2]), descending=True)
 assert sort.topk_permutation(key, 1).tolist() == [1]
 assert extract.extract_ge(torch.tensor([1, 7, 9], dtype=torch.int32), 7, 2).tolist() == [1, 2]
@@ -144,4 +168,4 @@ def test_kernel_build_needs_a_compiler(tmp_path, monkeypatch):
         pytest.skip("a CUDA toolkit is installed here")
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.build_all()
-    assert _build.sources() == ["extract", "groupby_agg"]
+    assert _build.sources() == ["extract", "groupby_agg", "join"]

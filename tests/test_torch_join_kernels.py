@@ -1,0 +1,318 @@
+"""The port's join kernels module (eventql_tpu_torch/kernels/join.py)
+against the JAX package's (eventql_tpu/kernels/join.py).
+
+The same seeded numpy inputs go through the JAX functions (the Pallas
+kernels in interpret mode, as tests/test_device_join.py runs them on the
+CPU) and through the port's counterparts on CPU tensors, where each
+wrapper uses its kernel's plain version. Buckets, counts and integer
+sums are exact, so every comparison is an equality (tolerance 0). A
+dict lookup in plain Python is the third, independent answer.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eventql_tpu.kernels import join as jjoin
+from eventql_tpu_torch.kernels import join as tjoin
+
+TOP = np.uint64(1 << 63)
+
+
+def _t(arr):
+    """numpy -> torch; uint64 / uint32 / uint16 as the signed tensor of
+    the same bits."""
+    arr = np.ascontiguousarray(arr)
+    signed = {np.dtype(np.uint64): np.int64, np.dtype(np.uint32): np.int32,
+              np.dtype(np.uint16): np.int16}.get(arr.dtype)
+    return torch.from_numpy(arr.view(signed) if signed else arr)
+
+
+def _lookup(fact, dim_keys, dim_bucket):
+    lut = {}
+    for k, b in zip(dim_keys, dim_bucket):
+        lut.setdefault(int(k), int(b))  # the lowest dimension row wins
+    return np.array([lut.get(int(k), -1) for k in fact], dtype=np.int32)
+
+
+def _fingerprint_collision(lo, hi):
+    """A key with the high word ``hi`` whose 32-bit fingerprint
+    (eventql_tpu/kernels/join.py:_fingerprint) equals that of the key
+    (high word 0, low word ``lo``)."""
+    f = (((hi << 13) & 0xFFFFFFFF) | ((hi >> 19) & 0x1FFF)) ^ ((hi >> 7) & 0x01FFFFFF)
+    return np.uint64((hi << 32) | (lo ^ f))
+
+
+def _case(name):
+    """(dim_keys u64[D], dim_bucket i32[D], fact_keys u64[n])."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "one dim":
+        dk = np.array([42], np.uint64)
+        fact = rng.choice(np.array([41, 42, 43], np.uint64), 300)
+    elif name == "half miss":
+        dk = rng.permutation(np.arange(777, dtype=np.uint64) * 104729 + 11)
+        fact = rng.integers(0, 777 * 2, 5000).astype(np.uint64) * 104729 + 11
+    elif name == "top-bit keys":
+        # keys on both sides of 2^63, and the two ends of the range
+        dk = rng.permutation(np.arange(500, dtype=np.uint64) * 977 + 5)
+        dk[::2] |= TOP
+        dk = np.concatenate([dk, np.array([0, 0xFFFFFFFFFFFFFFFF], np.uint64)])
+        fact = np.concatenate([
+            dk[rng.integers(0, len(dk), 3000)],
+            dk[rng.integers(0, len(dk), 500)] ^ TOP,  # same low bits: misses
+            np.array([0, 1, 0xFFFFFFFFFFFFFFFF, 0xFFFFFFFFFFFFFFFE], np.uint64),
+        ])
+    elif name in ("8192 dims", "8193 dims"):
+        d = int(name.split()[0])
+        dk = rng.permutation(np.arange(d, dtype=np.uint64) * 104729 + 11)
+        fact = rng.integers(0, d + d // 2, 4096).astype(np.uint64) * 104729 + 11
+    elif name == "dims outnumber facts":
+        dk = rng.permutation(np.arange(20_000, dtype=np.uint64) * 7 + 1)
+        fact = rng.integers(0, 40_000, 1000).astype(np.uint64) * 7 + 1
+    elif name == "one hot key":
+        dk = np.arange(2000, dtype=np.uint64) * 5 + 2
+        fact = np.concatenate([np.full(3000, 42 * 5 + 2, np.uint64),
+                               rng.integers(0, 2000, 100).astype(np.uint64) * 5 + 2])
+    else:
+        raise KeyError(name)
+    db = rng.integers(0, 70_000, len(dk)).astype(np.int32)
+    return dk, db, fact
+
+
+DIM_CASES = ["one dim", "half miss", "top-bit keys", "8192 dims"]
+PROBE_CASES = DIM_CASES + ["8193 dims", "dims outnumber facts", "one hot key"]
+
+
+@pytest.mark.parametrize("name", DIM_CASES)
+def test_dim_join_gid_equals_pallas_dim_join_gid(name):
+    dk, db, fact = _case(name)
+    assert jjoin.dim_fingerprints_unique(dk)  # the JAX kernel's precondition
+    # the JAX kernel recovers the bucket from two int8 limbs: 16 bits
+    db = db % 65536
+    want = np.asarray(jjoin.pallas_dim_join_gid(
+        jnp.asarray(fact), jnp.asarray(dk), jnp.asarray(db)))
+    got = tjoin.dim_join_gid(_t(fact), _t(dk), _t(db))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, _lookup(fact, dk, db))
+    assert (want >= 0).any() and (want < 0).any()
+
+
+@pytest.mark.parametrize("name", PROBE_CASES)
+def test_probe_join_gid_equals_merge_join_gid(name):
+    """merge_join_gid wants its facts sorted and answers in that order;
+    the port probes in row order, so the JAX answer goes back through
+    the sort permutation."""
+    dk, db, fact = _case(name)
+    db = db % 65536
+    order = np.argsort(fact, kind="stable")
+    want_sorted = np.asarray(jjoin.merge_join_gid(
+        jnp.asarray(fact[order]), jnp.asarray(dk), jnp.asarray(db),
+        block=1024, window=512))
+    want = np.empty_like(want_sorted)
+    want[order] = want_sorted
+    sk, perm = tjoin.build_side(_t(dk))
+    got = tjoin.probe_join_gid(_t(fact), sk, _t(db)[perm].contiguous())
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, _lookup(fact, dk, db))
+    # the tier switch gives the same answer on either side of the boundary
+    np.testing.assert_array_equal(tjoin.join_gid(_t(fact), _t(dk), _t(db)).numpy(), want)
+
+
+@pytest.mark.parametrize("name", PROBE_CASES)
+def test_whole_int32_bucket_comes_back(name):
+    """Buckets beyond 16 bits (the JAX kernels cannot return them)."""
+    dk, db, fact = _case(name)
+    db = db + 1_000_000
+    want = _lookup(fact, dk, db)
+    np.testing.assert_array_equal(tjoin.join_gid(_t(fact), _t(dk), _t(db)).numpy(), want)
+
+
+def test_colliding_fingerprints_are_an_ordinary_input():
+    """Dimension keys whose fingerprints collide fail the JAX kernel's
+    precondition (its caller then takes dim_join_gather); the port's
+    dim_join_gid takes them, and agrees with dim_join_gather."""
+    rng = np.random.default_rng(3)
+    lows = rng.choice(1 << 31, 200, replace=False)
+    dk = np.concatenate([
+        lows.astype(np.uint64),
+        np.array([_fingerprint_collision(int(lo), 1 + i) for i, lo in enumerate(lows)]),
+    ])
+    assert len(np.unique(dk)) == len(dk)
+    assert not jjoin.dim_fingerprints_unique(dk)
+    db = rng.integers(0, 512, len(dk)).astype(np.int32)
+    fact = np.concatenate([dk[rng.integers(0, len(dk), 4000)],
+                           rng.integers(0, 1 << 31, 1000).astype(np.uint64)])
+    jsk, jperm = jjoin.build_side(jnp.asarray(dk))
+    idx, matched = jjoin.dim_join_gather(jsk, jperm, jnp.asarray(fact))
+    want = np.where(np.asarray(matched), db[np.maximum(np.asarray(idx), 0)], -1)
+    got = tjoin.dim_join_gid(_t(fact), _t(dk), _t(db))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, _lookup(fact, dk, db))
+
+
+def test_empty_dimension_table_gives_all_misses():
+    fact = np.array([1, 2, 3], np.uint64)
+    none_k, none_b = np.array([], np.uint64), np.array([], np.int32)
+    want = np.asarray(jjoin.merge_join_gid(
+        jnp.asarray(fact), jnp.asarray(none_k), jnp.asarray(none_b)))
+    assert list(want) == [-1, -1, -1]
+    for fn in (tjoin.dim_join_gid, tjoin.probe_join_gid, tjoin.join_gid,
+               tjoin.dim_join_gid_plain, tjoin.probe_join_gid_plain):
+        assert list(fn(_t(fact), _t(none_k), _t(none_b)).numpy()) == [-1, -1, -1]
+
+
+def test_duplicate_dimension_keys_take_the_lowest_row():
+    dk = np.array([7, 9, 7, 3, 9, 7], np.uint64)
+    db = np.array([10, 11, 12, 13, 14, 15], np.int32)
+    fact = np.array([7, 9, 3, 8], np.uint64)
+    assert list(tjoin.dim_join_gid(_t(fact), _t(dk), _t(db)).numpy()) == [10, 11, 13, -1]
+    sk, perm = tjoin.build_side(_t(dk))
+    got = tjoin.probe_join_gid(_t(fact), sk, _t(db)[perm].contiguous())
+    assert list(got.numpy()) == [10, 11, 13, -1]
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.uint32])
+def test_narrowed_fact_key_stream_zero_extends(dtype):
+    """A fact key column whose values fit 16 / 32 bits reaches the
+    probe as the signed tensor of that width; payloads with the narrow
+    type's top bit set must not sign-extend."""
+    rng = np.random.default_rng(8)
+    top = np.iinfo(dtype).max
+    dk = np.unique(np.concatenate([rng.integers(0, top, 300).astype(np.uint64),
+                                   np.array([top, top - 1], np.uint64)]))
+    dk = rng.permutation(dk)
+    db = rng.integers(0, 99, len(dk)).astype(np.int32)
+    fact = np.concatenate([dk[rng.integers(0, len(dk), 2000)],
+                           rng.integers(0, top, 500).astype(np.uint64)]).astype(dtype)
+    want = _lookup(fact, dk, db)
+    assert (fact.view(np.dtype(dtype).str.replace("u", "i")) < 0).any()
+    for n in (None, 1234):
+        got = tjoin.join_gid(_t(fact), _t(dk), _t(db), n)
+        np.testing.assert_array_equal(got.numpy(), want[:n])
+        sk, perm = tjoin.build_side(_t(dk))
+        got = tjoin.probe_join_gid(_t(fact), sk, _t(db)[perm].contiguous(), n)
+        np.testing.assert_array_equal(got.numpy(), want[:n])
+
+
+def test_torch_op_functions_equal_the_jax_functions():
+    """build_side, probe_ranges, dim_join_gather, _gather_gid."""
+    rng = np.random.default_rng(21)
+    build = rng.integers(0, 50, 400).astype(np.uint64) * 3
+    build[::5] |= TOP
+    probe = np.concatenate([build[rng.integers(0, 400, 300)],
+                            rng.integers(0, 200, 100).astype(np.uint64)])
+    jsk, jperm = jjoin.build_side(jnp.asarray(build))
+    sk, perm = tjoin.build_side(_t(build))
+    np.testing.assert_array_equal(sk.numpy().view(np.uint64), np.asarray(jsk))
+    # equal keys: both sorts are stable, so the permutations agree too
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(jperm))
+    jstart, jcount = jjoin.probe_ranges(jsk, jnp.asarray(probe))
+    start, count = tjoin.probe_ranges(sk, _t(probe))
+    np.testing.assert_array_equal(start.numpy(), np.asarray(jstart))
+    np.testing.assert_array_equal(count.numpy(), np.asarray(jcount))
+    jidx, jmatched = jjoin.dim_join_gather(jsk, jperm, jnp.asarray(probe))
+    idx, matched = tjoin.dim_join_gather(sk, perm, _t(probe))
+    np.testing.assert_array_equal(matched.numpy(), np.asarray(jmatched))
+    np.testing.assert_array_equal(idx.numpy()[matched.numpy()],
+                                  np.asarray(jidx)[np.asarray(jmatched)])
+    assert (idx.numpy()[~matched.numpy()] == -1).all()
+    bucket = rng.integers(0, 9, 400).astype(np.int32)
+    mask = rng.random(len(probe)) < 0.7
+    jgid, jm = jjoin._gather_gid(jnp.asarray(bucket), jidx, jmatched, jnp.asarray(mask))
+    gid, m = tjoin._gather_gid(_t(bucket), idx, matched, _t(mask))
+    np.testing.assert_array_equal(m.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(gid.numpy()[m.numpy()], np.asarray(jgid)[np.asarray(jm)])
+
+
+def _agg_inputs(n_dim, n_fact, K, seed, value_hi=1000):
+    rng = np.random.default_rng(seed)
+    dk = rng.permutation(np.arange(n_dim, dtype=np.uint64) * 104729 + 17)
+    db = rng.integers(0, K, n_dim).astype(np.int32)
+    fk = np.where(rng.random(n_fact) < 0.7,
+                  rng.integers(0, n_dim, n_fact).astype(np.uint64) * 104729 + 17,
+                  rng.integers(0, 1 << 62, n_fact).astype(np.uint64))
+    fv = rng.integers(0, value_hi, n_fact).astype(np.uint64)
+    mask = rng.random(n_fact) < 0.8
+    return fk, fv, mask, dk, db
+
+
+def _numpy_join_agg(fk, fv, mask, dk, db, K):
+    gid = _lookup(fk, dk, db)
+    ok = mask & (gid >= 0)
+    counts = np.bincount(gid[ok], minlength=K).astype(np.uint64)
+    sums = np.zeros(K, np.uint64)
+    np.add.at(sums, gid[ok], fv[ok])
+    return counts, sums
+
+
+@pytest.mark.parametrize("n_dim", [200, 3000, tjoin.MAX_COMPARE_DIMS + 300])
+def test_fact_dim_join_aggregate_equals_jax(n_dim):
+    K = 16
+    fk, fv, mask, dk, db = _agg_inputs(n_dim, 20_000, K, seed=n_dim)
+    jc, js = jjoin.fact_dim_join_aggregate(
+        jnp.asarray(fk), jnp.asarray(fv), jnp.asarray(mask), jnp.asarray(dk),
+        jnp.asarray(db), K)
+    c, s = tjoin.fact_dim_join_aggregate(_t(fk), _t(fv), _t(mask), _t(dk), _t(db), K)
+    np.testing.assert_array_equal(c.numpy().view(np.uint64), np.asarray(jc))
+    np.testing.assert_array_equal(s.numpy().view(np.uint64), np.asarray(js))
+    ec, es = _numpy_join_agg(fk, fv, mask, dk, db, K)
+    np.testing.assert_array_equal(np.asarray(jc), ec)
+    np.testing.assert_array_equal(np.asarray(js), es)
+
+
+@pytest.mark.parametrize("value_bits, key_bound", [(64, None), (21, None), (16, "span")])
+def test_sorted_merge_join_aggregate_equals_jax(value_bits, key_bound):
+    """value_bits and key_bound only made the TPU's sort cheaper: with
+    values that fit value_bits the answers are the same with or without
+    them, in both packages."""
+    K = 64
+    fk, fv, mask, dk, db = _agg_inputs(
+        5000, 30_000, K, seed=value_bits, value_hi=1 << min(value_bits, 20))
+    if key_bound == "span":
+        # keys > 2^32 whose span fits 32 bits (the JAX hint's contract)
+        fk = fk % np.uint64(1 << 31) + np.uint64(7_000_000_000)
+        dk = np.unique(fk)[::3].copy()
+        db = (np.arange(len(dk)) % K).astype(np.int32)
+        key_bound = (int(fk.min()), int(fk.max()))
+    jc, js = jjoin.sorted_merge_join_aggregate(
+        jnp.asarray(fk), jnp.asarray(fv), jnp.asarray(mask), jnp.asarray(dk),
+        jnp.asarray(db), K, block=1024, window=512, value_bits=value_bits,
+        key_bound=key_bound)
+    c, s = tjoin.sorted_merge_join_aggregate(
+        _t(fk), _t(fv), _t(mask), _t(dk), _t(db), K, block=1024, window=512,
+        value_bits=value_bits, key_bound=key_bound)
+    np.testing.assert_array_equal(c.numpy().view(np.uint64), np.asarray(jc))
+    np.testing.assert_array_equal(s.numpy().view(np.uint64), np.asarray(js))
+    ec, es = _numpy_join_agg(fk, fv, mask, dk, db, K)
+    np.testing.assert_array_equal(np.asarray(jc), ec)
+    np.testing.assert_array_equal(np.asarray(js), es)
+    assert int(ec.sum()) > 0
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    fact, dk, db = _t(np.arange(8, dtype=np.uint64)), _t(np.arange(4, dtype=np.uint64)), \
+        _t(np.arange(4, dtype=np.int32))
+    with pytest.raises(TypeError):
+        tjoin.dim_join_gid(fact.to(torch.float64), dk, db)
+    with pytest.raises(TypeError):
+        tjoin.dim_join_gid(fact, dk, db.to(torch.int64))
+    with pytest.raises(TypeError):
+        tjoin.probe_join_gid(fact, dk, db[:3])
+    with pytest.raises(ValueError):
+        tjoin.dim_join_gid(fact, dk, db, n=9)
+    with pytest.raises(ValueError):
+        tjoin.dim_join_gid(fact[::2], dk, db)
+    big = torch.arange(tjoin.MAX_COMPARE_DIMS + 1)
+    with pytest.raises(ValueError):
+        tjoin.dim_join_gid(fact, big, big.to(torch.int32))
+    with pytest.raises(ValueError):
+        tjoin.dim_join_gid_plain(fact, big, big.to(torch.int32))
+
+
+def test_cpu_tensors_launch_nothing():
+    before = dict(tjoin.LAUNCHES)
+    dk, db, fact = _case("half miss")
+    tjoin.join_gid(_t(fact), _t(dk), _t(db))
+    assert tjoin.LAUNCHES == before
