@@ -20,7 +20,8 @@ Phases (any mismatch or exception ends the run with a non-zero code):
      made is repeated on the same tensors through the wrapper and the
      plain version, which must be equal (tolerance 0); then CUDA-event
      times of both beside the bound and a library call, and the warm
-     end-to-end time per query.
+     end-to-end time per query; the big-table join probe also against
+     dimension tables of 16384 and 2^22 rows, and its table build alone.
 
 Prints one JSON line {"kernels": [...]} and, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -66,14 +67,19 @@ BIG_SPAN = 100_000
 CAT_LO, CAT_HI = -40, 60
 N_DIMS = 1024  # the small dimension table: shared-memory probe
 DIM_MULT = 7919
-N_BIG_DIMS = 1 << 18  # the large one: sorted table in global memory
+N_BIG_DIMS = 1 << 18  # the large one: hash table in global memory
 BIG_DIM_MULT = 2654435761
 N_REGIONS = 1024
 FAST_TOPK_ROWS = 1 << 22  # from here on a single-key top-k takes the histograms
 I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg):
+    if msg.startswith("phase "):  # with the seconds since the script began
+        msg += f" [{time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -174,6 +180,69 @@ def kernel_cases(n, device, rng):
         gid=g32, n=n, num_buckets=1024, streams=[v16, v32],
         stream_bits=[16, 32], streams_unsigned=[True, False])
 
+    # streams that start 1, 3 and 7 rows into their allocations (no 16-byte
+    # boundary: the scalar loads), the shortest streams and a long one,
+    # every stream type: i16 / u16 / i32 / i64 keys, u16 / u32 / u64
+    # values, an i16 predicate stream, the byte mask
+    typed = ((np.int16, False, v16, 16, True), (np.uint16, True, v32, 32, False),
+             (np.int32, False, v64, 64, False), (np.int64, False, v16, 16, True))
+    for off in (1, 3, 7):
+        for rows in (*range(1, 18), n - off):
+            dt, uns, vals, bits, vuns = typed[(rows + off) % len(typed)]
+            yield "groupby_agg", f"offset {off} n={rows} key={np.dtype(dt).name}", dict(
+                gid=keys(5, dt, 2)[off:], n=rows, num_buckets=5, values=vals[off:],
+                value_bits=bits, mask=mask[off:], gid_base=2, gid_unsigned=uns,
+                preds=[ga.Pred("stream", "ge", -15000, p16[off:])],
+                values_unsigned=vuns)
+        for rows in (1, 4, 5, 9, 17, n - off):
+            yield "groupby_multi_agg", f"offset {off} n={rows}", dict(
+                gid=g32[off:], n=rows, num_buckets=1024,
+                streams=[v16[off:], v64[off:], v32[off:]], stream_bits=[16, 64, 32],
+                mask=mask[off:], streams_unsigned=[True, False, False])
+    # one stream off its boundary is enough to take the scalar loads
+    yield "groupby_agg", "only the value stream sliced", dict(
+        gid=g1024[:n - 1], n=n - 1, num_buckets=1024, values=v16[1:], value_bits=16,
+        values_unsigned=True)
+    # K on both sides of the edge between the table in shared memory and
+    # the table in global memory, for no sum, one sum and eight
+    eight = [v16, v32, v64, p32, v16, v64, v32, v64]
+    eight_bits = [16, 32, 64, 24, 8, 48, 32, 64]
+    eight_uns = [True, False, False, False, True, False, False, False]
+    for S in (0, 1, 8):
+        for K in table_form_edges(S, device) + ([131_073] if S == 8 else []):
+            form = ("shared" if ga.table_in_shared_memory(K, S, ga.smem_optin(device))
+                    else "global")
+            g = keys(K, np.int32)
+            if S == 8:
+                yield "groupby_multi_agg", f"S=8 K={K} form={form}", dict(
+                    gid=g, n=n, num_buckets=K, streams=eight, stream_bits=eight_bits,
+                    mask=mask, streams_unsigned=eight_uns)
+            else:
+                yield "groupby_agg", f"S={S} K={K} form={form}", dict(
+                    gid=g, n=n, num_buckets=K, values=v64 if S else None,
+                    value_bits=64, mask=mask)
+    # every row in one bucket, 64-bit values: the low word wraps on every
+    # other add and each wrap must carry
+    hot = torch.zeros(n, dtype=torch.int32, device=device)
+    for bits, vals in ((64, v64), (32, v32)):
+        yield "groupby_agg", f"one hot key, {bits}-bit values", dict(
+            gid=hot, n=n, num_buckets=3, values=vals, value_bits=bits)
+    yield "groupby_multi_agg", "one hot key, three sums", dict(
+        gid=hot, n=n, num_buckets=1, streams=[v64, v32, v16], stream_bits=[64, 32, 16],
+        streams_unsigned=[False, False, True])
+
+
+def table_form_edges(nsums, device):
+    """The largest bucket count whose table of ``nsums`` sums a block of
+    this device keeps in its shared memory, and the next, whose table
+    lies in global memory (kernels/groupby_agg.table_in_shared_memory)."""
+    optin = ga.smem_optin(device)
+    whole = optin // (8 * (1 + nsums))
+    check(ga.table_in_shared_memory(whole, nsums, optin)
+          and not ga.table_in_shared_memory(whole + 1, nsums, optin),
+          f"no edge between the table forms at K = {whole} for {nsums} sums")
+    return [whole, whole + 1]
+
 
 def extract_cases(n, rng):
     """Yield (label, values int32[n], threshold, cap, rows or None) for
@@ -235,22 +304,49 @@ def join_cases(n, device, rng):
         hit = keys[rng.integers(0, len(keys), n)]
         return np.where(rng.random(n) < 0.67, hit, hit + np.uint64(1)).astype(dtype)
 
-    def both(label, keys, bucket, fact, rows=None, probe_only=False):
+    def both(label, keys, bucket, fact, rows=None, probe_only=False, skip=0):
         dk, db, f = (dev_tensor(a, device) for a in (keys, bucket, fact))
+        f = f[skip:]  # skip > 0: the stream starts off a 16-byte boundary
         if not probe_only:
             yield "dim_join_gid", label, dict(
                 fact_keys=f, dim_keys=dk, dim_bucket=db, n=rows)
-        sk, perm = kj.build_side(dk)
         yield "probe_join_gid", label, dict(
-            fact_keys=f, sorted_dim_keys=sk,
-            sorted_dim_bucket=db[perm].contiguous(), n=rows)
+            fact_keys=f, dim_keys=dk, dim_bucket=db, n=rows)
 
     for D in (1, 127, 1024, kj.MAX_COMPARE_DIMS):
         keys, bucket = dims(D)
         yield from both(f"D={D}", keys, bucket, facts(keys))
-    for D in (kj.MAX_COMPARE_DIMS + 1, N_BIG_DIMS):
+    for D in (kj.MAX_COMPARE_DIMS + 1, N_BIG_DIMS, 1 << 22):
         keys, bucket = dims(D)
         yield from both(f"D={D}", keys, bucket, facts(keys), probe_only=True)
+    # the dimension rows sorted (as valid an order as any), and with every
+    # third key again further down under another bucket: the lowest row wins
+    for D in (3001, 20_011):
+        keys, bucket = dims(D, top_bit=True)
+        order = np.argsort(keys, kind="stable")
+        yield from both(f"D={D} sorted dims", keys[order], bucket[order], facts(keys),
+                        probe_only=D > kj.MAX_COMPARE_DIMS)
+        dup = np.concatenate([keys, keys[::3]])
+        dup_bucket = np.concatenate([bucket, bucket[::3] + 1])
+        yield from both(f"D={len(dup)} duplicate keys", dup, dup_bucket, facts(keys),
+                        probe_only=len(dup) > kj.MAX_COMPARE_DIMS)
+    # the shortest streams, the sizes around one tile of the probe (256
+    # threads x 8 rows), streams off their boundary, all three widths
+    keys, bucket = dims(20_011, all_ones=True)
+    for rows in (1, 2, 7, 8, 9, 2047, 2048, 2049):
+        for skip in (0, 3):
+            f = facts(keys)[:rows + skip]
+            f[skip] = keys[5]  # the first row probed is a hit, the last a miss
+            f[-1] = keys[5 * (rows == 1)] + np.uint64(rows > 1)
+            yield from both(f"n={rows} skip={skip}", keys, bucket, f, rows=rows,
+                            probe_only=True, skip=skip)
+    for bits, dt in ((16, np.uint16), (32, np.uint32), (64, np.uint64)):
+        keys, bucket = dims(9001, narrow_to=min(bits, 40))
+        f = np.where(rng.random(n) < 0.67, keys[rng.integers(0, 9001, n)],
+                     rng.integers(0, 1 << min(bits, 40), n).astype(np.uint64)).astype(dt)
+        for skip in (0, 1):
+            yield from both(f"D=9001 fact keys u{bits} skip={skip}", keys, bucket, f,
+                            rows=n - 7, probe_only=True, skip=skip)
     keys, bucket = dims(5003)
     yield from both("ragged n", keys, bucket, facts(keys), rows=n - 12345)
     keys, bucket = dims(3001, top_bit=True)
@@ -307,7 +403,8 @@ def launch_counts():
 
 def zero_launch_counts():
     for k in _KERNELS.values():
-        k.module.LAUNCHES[k.name] = 0
+        for name in k.module.LAUNCHES:  # the table-build kernel's count too
+            k.module.LAUNCHES[name] = 0
 
 
 def check_extract(label, got, want, values, threshold, cap, rows):
@@ -349,7 +446,7 @@ def phase_kernels(device, n):
               f"{name} [{label}]: kernel and plain version disagree (max |diff| {err})")
         if label == "all rows filtered":
             check(int(got.sum()) == 0, "filtered rows were counted")
-        else:
+        elif kw["n"] >= 1000:  # a handful of rows may all be filtered
             check(int(got[0].sum()) > 0, f"{name} [{label}]: nothing counted")
         cases += 1
     for name, label, kw in join_cases(n, device, rng):
@@ -363,7 +460,8 @@ def phase_kernels(device, n):
               f"{name} [{label}]: kernel and plain version disagree on"
               f" {int((got != want).sum())} rows")
         hits = int((got >= 0).sum())
-        check(0 < hits < rows, f"{name} [{label}]: {hits} hits in {rows} rows")
+        check(0 < hits and (hits < rows or rows == 1),
+              f"{name} [{label}]: {hits} hits in {rows} rows")
         cases += 1
     for name, count in launch_counts().items():
         check(count > 0, f"{name}: no kernel launch in phase 3")
@@ -809,6 +907,10 @@ def phase_main_path(device, n, n_prefix, reps):
     j_launches = launch_counts()
     for name in ("dim_join_gid", "probe_join_gid", "groupby_agg", "groupby_multi_agg"):
         check(j_launches[name] > 0, f"{name}: not launched on the JOIN path")
+    # probe_join_gid is two device functions: every probe had its table built
+    table_builds = kj.LAUNCHES["build_join_table"]
+    check(table_builds == j_launches["probe_join_gid"],
+          f"{table_builds} table builds for {j_launches['probe_join_gid']} probes")
     log(f"phase 4: {len(j_e2e)} JOIN + GROUP BY queries x {reps} equal to numpy at"
         f" {n} rows, in order; launches {j_launches}")
 
@@ -960,11 +1062,14 @@ def check_and_time_extract(label, kw, iters):
 
 
 def check_and_time_join(kernel, label, kw, iters):
-    """A join probe on a recorded call: equal to the plain version
-    (tolerance 0), then timed beside the chain of library calls that
-    does the same on keys made ready beforehand (widened to int64 with
-    the top bit flipped, the dimension side sorted): no single PyTorch
-    call computes the probe."""
+    """A join probe on a recorded call (the dimension side unsorted, as
+    the route hands it over): equal to the plain version (tolerance 0),
+    then timed beside the chain of library calls that does the same on
+    keys made ready beforehand (widened to int64 with the top bit
+    flipped, the dimension side sorted): no single PyTorch call computes
+    the probe. For probe_join_gid the time covers both of its device
+    functions, the table build and the probe; the build is also timed
+    alone."""
     wrapper, plain = _KERNELS[kernel].wrapper, _KERNELS[kernel].plain
     got, want = wrapper(**kw), plain(**kw)
     torch.cuda.synchronize()
@@ -979,11 +1084,9 @@ def check_and_time_join(kernel, label, kw, iters):
     del got, want
 
     facts, n = kw["fact_keys"], kw["n"]
-    if kernel == "dim_join_gid":
-        sk, perm = kj.build_side(kw["dim_keys"])
-        bucket = kw["dim_bucket"][perm].contiguous()
-    else:
-        sk, bucket = kw["sorted_dim_keys"], kw["sorted_dim_bucket"]
+    n = facts.shape[0] if n is None else n
+    sk, perm = kj.build_side(kw["dim_keys"])
+    bucket = kw["dim_bucket"][perm].contiguous()
     D = sk.shape[0]
     flip = -(1 << 63)
     sk_f, pk = sk ^ flip, kj._u64_bits(facts[:n])
@@ -1001,15 +1104,38 @@ def check_and_time_join(kernel, label, kw, iters):
         plain_ms=cuda_ms(lambda: plain(**kw), 2, warmup=1),
         library_ms=cuda_ms(chain, 3, warmup=1),
         library="chain of 5 calls, no single one does the probe: torch.searchsorted,"
-                " clamp_, two gathers, ==, where (on int64 keys flipped beforehand)",
+                " clamp_, two gathers, ==, where (on int64 keys flipped and a"
+                " dimension side sorted beforehand)",
     )
+    if kernel == "probe_join_gid":
+        out["build_ms"] = cuda_ms(
+            lambda: kj.build_join_table(kw["dim_keys"], kw["dim_bucket"]), iters)
     # the fact keys read once at their stored width, one int32 written a
-    # row, the dimension table read once; a hash and two compares a row
-    # in shared memory, or one compare per step of the search
+    # row, the dimension table read once; a hash (two 64-bit multiplies,
+    # three shifts), a slot index and two compares a row
     width = facts.element_size()
-    ops_per_row = 12 if kernel == "dim_join_gid" else max(D - 1, 1).bit_length() + 1
-    out.update(_bound(n * (width + 4) + D * 12, n * ops_per_row,
+    out.update(_bound(n * (width + 4) + D * 12, n * 12,
                       f"n={n} D={D} fact_keys={str(facts.dtype).split('.')[-1]}"))
+    return out
+
+
+def probe_shapes_off_the_main_path(device, n, iters):
+    """probe_join_gid at two dimension sizes no query of phase 4 has: a
+    table that fits well inside the L2 (16384 rows: 512 KB of slots) and
+    one beyond it (2^22 rows: 128 MB of slots), u64 keys, every fact row
+    a hit, as the 2^18-row query has it."""
+    gen = torch.Generator(device=device).manual_seed(11)  # made on the card
+    out = {}
+    for D in (16_384, 1 << 22):
+        kw = dict(
+            fact_keys=torch.randint(D, (n,), generator=gen, device=device)
+            * BIG_DIM_MULT + 3,
+            dim_keys=torch.randperm(D, generator=gen, device=device) * BIG_DIM_MULT + 3,
+            dim_bucket=torch.randint(N_REGIONS, (D,), generator=gen, device=device,
+                                     dtype=torch.int32),
+            n=n)
+        out[f"D={D} (not a query)"] = check_and_time_join(
+            "probe_join_gid", f"D={D}", kw, iters)
     return out
 
 
@@ -1125,6 +1251,11 @@ def phase_times(device, calls):
         level1["library_ms"] = cuda_ms(
             lambda: torch.bincount(prefix, minlength=4096), 5, warmup=1)
         level1["library"] = "torch.bincount (int32 keys, no predicate)"
+        level2 = out["groupby_agg"]["other_shapes"]["topk_ts_desc call 2"]
+        level2["library_ms"] = None
+        level2["library"] = (
+            "none: no single call counts per bucket only the rows a compare on a"
+            " second stream selects (bincount takes float weights, not a filter)")
     # the join queries reached the probes as the narrowed (32-bit) and
     # the 64-bit fact key stream, at the two dimension sizes
     (k1, kw1), (k2, kw2) = calls["join_small_dim"]
@@ -1135,12 +1266,28 @@ def phase_times(device, calls):
           and 0 < kw2["num_buckets"] <= N_REGIONS,
           "the small-dim join did not reach the kernels as a u32 key stream"
           " against 1024 dims, then i32 buckets with the u16 value stream")
+    # B1 after a join: index_add_ on int64, the bucket shifted by one
+    # beforehand so that -1 (no dimension row) lands in a spare slot
+    n, K = kw2["n"], kw2["num_buckets"]
+    idx64 = kw2["gid"][:n].to(torch.int64) + 1
+    v64 = kw2["values"][:n].to(torch.int64)
+    lib3 = torch.zeros(K + 1, dtype=torch.int64, device=device)
+    after_join = out["groupby_agg"]["other_shapes"]["join_small_dim call 2"]
+    after_join["library_ms"] = cuda_ms(
+        lambda: lib3.index_add_(0, idx64, v64), 5, warmup=1)
+    after_join["library"] = (
+        "torch.Tensor.index_add_ (int64, sums only, buckets shifted by one"
+        " beforehand so that -1 has a slot)")
+    del idx64, v64
     (k1, kw1), (k2, kw2) = calls["join_big_dim"]
     check((k1, k2) == ("probe_join_gid", "groupby_agg")
           and kw1["fact_keys"].dtype == torch.int64
-          and kw1["sorted_dim_keys"].shape[0] == N_BIG_DIMS,
+          and kw1["dim_keys"].shape[0] == N_BIG_DIMS
+          and not bool((kw1["dim_keys"][1:] > kw1["dim_keys"][:-1]).all()),
           "the big-dim join did not reach the kernels as a u64 key stream"
-          " against 2^18 sorted dims")
+          " against 2^18 unsorted dims")
+    out["probe_join_gid"]["other_shapes"].update(
+        probe_shapes_off_the_main_path(device, kw1["n"], 5))
     for name, d in out.items():
         d["max_abs_err"] = max([d.get("max_abs_err", 0.0)] + [
             o["max_abs_err"] for o in d["other_shapes"].values()])
@@ -1160,7 +1307,8 @@ _REPLACES = {
     "dim_join_gid": ("eventql_tpu_torch/kernels/csrc/join.cu",
                      "eventql_tpu/kernels/join.py:142", "evql_dim_join_gid"),
     "probe_join_gid": ("eventql_tpu_torch/kernels/csrc/join.cu",
-                       "eventql_tpu/kernels/join.py:449", "evql_probe_join_gid"),
+                       "eventql_tpu/kernels/join.py:449",
+                       "evql_build_join_table + evql_probe_join_table"),
 }
 
 
@@ -1210,6 +1358,8 @@ def main():
             "bytes": t["bytes"],
             "other_shapes": t["other_shapes"],
         })
+        if "build_ms" in t:  # probe_join_gid: its table-build kernels alone
+            kernels[-1]["build_ms"] = t["build_ms"]
     log(json.dumps({"e2e_ms": run["e2e"], "rows": N_ROWS,
                     "launches_per_query": run["per_query"],
                     "device_bytes_held": run["resident"],

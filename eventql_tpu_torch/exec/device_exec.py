@@ -1391,7 +1391,7 @@ def try_execute_device_join_groupby(
     f.k = d.k [WHERE fact-side predicate] GROUP BY <dim column> on the
     device: scan + filter in torch_expr, the join probe kernel
     (kernels/join.py: the shared-memory table up to MAX_COMPARE_DIMS
-    dimension rows, the sorted table in global memory above), then the
+    dimension rows, a hash table in global memory above), then the
     grouped aggregate kernel over the dimension buckets. No join pair
     materialises. Returns None when the plan is outside the subset (the
     host engine takes over): see join_groupby_analysis.

@@ -3,46 +3,56 @@
 //
 // Replaces the two TPU kernels of eventql_tpu/kernels/join.py:
 //   _join_kernel         (pallas_dim_join_gid)                  -> evql_dim_join_gid
-//   _window_join_kernel  (_window_join_pallas, merge_join_gid)  -> evql_probe_join_gid
+//   _window_join_kernel  (_window_join_pallas, merge_join_gid)  -> evql_build_join_table
+//                                                                  + evql_probe_join_table
 //
 // What is computed, per row < n: load the fact key at its stored width
 // (u16 / u32 / u64, zero-extended), find the dimension key that is equal in
 // all 64 bits, write that dimension row's bucket as int32, or -1 when no
-// dimension key is equal. Among duplicate dimension keys the lowest dimension
-// row wins (evql_dim_join_gid) or the first in the sorted order
-// (evql_probe_join_gid); the SQL route never passes duplicates.
+// dimension key is equal. The dimension rows come in any order; among
+// duplicate dimension keys the lowest dimension row wins (the SQL route never
+// passes duplicates).
 //
 // Bound: bytes. The fact key is read once and one int32 is written per row,
 // the dimension table is read once: n * (key width + 4) + D * 12 bytes over
 // the HBM bandwidth.
 //
 // Design. Both are gather-and-compare kernels over a table that is small
-// beside the fact stream, so the table is kept where a gather is cheap and the
-// fact stream is covered by a grid-stride loop of coalesced loads.
+// beside the fact stream, so the table is an open-addressed hash table (a
+// power of two of slots, at least 2 * D, linear probing) kept where a gather
+// is cheap, and built on the card from the unsorted dimension rows: atomicCAS
+// claims a slot's key, atomicMin keeps the lowest row of a duplicate key, and
+// a last pass turns rows into buckets. The key with all 64 bits set marks an
+// empty slot, so a dimension row with that very key lives in a slot of its
+// own. The wrapper sorts nothing. Nothing of the TPU designs (fingerprints,
+// the (D, B) compare matrix, int8 payload planes and limb recovery; sorted
+// facts, windows, the overflow branch, double-buffered copies) is carried
+// over, and colliding fingerprints are an ordinary input.
 //
-//   evql_dim_join_gid, D <= 8192: every block builds an open-addressed hash
-//   table of the whole dimension side in its dynamic shared memory (a power of
-//   two of slots, at least 2 * D, 12 bytes a slot: at most 16384 slots =
-//   192 KB, under the 227 KB a block may opt in to) straight from the unsorted
-//   dimension rows, then probes it: about 1.5 shared-memory reads for a hit
-//   at a load of one half, against 13 dependent steps of a binary search over
-//   a sorted array of the same size. The build is D inserts a block and is
-//   repeated by every block; with a few hundred blocks that is a few million
-//   inserts beside 2^26 probes. A table built in the kernel also means the
-//   wrapper sorts nothing. Nothing of the TPU design (fingerprints, the
-//   (D, B) compare matrix, int8 payload planes and limb recovery) is carried
-//   over, and colliding fingerprints are an ordinary input.
+//   evql_dim_join_gid, D <= 8192: every block builds the table of the whole
+//   dimension side in its dynamic shared memory (12 bytes a slot: at most
+//   16384 slots = 192 KB, under the 227 KB a block may opt in to), then probes
+//   it: about 1.5 shared-memory reads for a hit at a load of one half. The
+//   build is D inserts a block and is repeated by every block; with a few
+//   hundred blocks that is a few million inserts beside 2^26 probes.
 //
-//   evql_probe_join_gid, any D: the dimension keys arrive sorted (ascending as
-//   unsigned 64-bit) with their buckets in the same order, and stay in global
-//   memory, where 2^18 x 12 B = 3 MB is resident in the 50 MB L2. Each block
-//   copies up to 4096 evenly spaced keys into shared memory; a thread finds
-//   its key's interval there (12 steps in shared memory) and finishes the
-//   lower-bound search inside that interval in global memory
-//   (log2(D / 4096) steps). Facts are probed in row order: the TPU kernel's
-//   sorted-facts contract, its windows, its overflow branch and its
-//   double-buffered copies have no counterpart. A hash table in global memory
-//   built by a kernel of its own would cut the dependent loads further.
+//   evql_build_join_table + evql_probe_join_table, any D: the table lies in
+//   global memory, 16 bytes a slot {u64 key, int32 bucket, pad} so that key
+//   and bucket arrive in one aligned 16-byte load, inside one 32-byte sector;
+//   2^18 dimension rows make 2^19 slots = 8 MB, resident in the 50 MB L2.
+//   Three small kernels build it (fill, insert, rows to buckets); the probe
+//   is a launch of its own on the same stream, so it never reads a half-built
+//   table. What bounds the probe is not HBM but random sectors from the L2
+//   and their latency: a row costs about 1.25 sectors (a collision's next
+//   slot shares the sector every other time) against the eight of a binary
+//   search, and what is left is to keep many of them in flight. So a thread
+//   takes 8 rows per loop turn: their keys arrive as 16-byte vectors
+//   (coalesced: consecutive threads read consecutive vectors), the first
+//   probe of all eight is started before any is looked at, and the buckets
+//   leave as vector stores. A fact stream that does not start on a 16-byte
+//   boundary and the last, ragged tile take scalar loads in the same kernel.
+//   A table beyond the L2 (D >= 2^22: 128 MB) turns each probe into an HBM
+//   sector, still one or two a row.
 
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -54,7 +64,6 @@ enum { DT_U16 = 1, DT_U32 = 2, DT_U64 = 3 };
 
 #define EVQL_EMPTY_KEY 0xFFFFFFFFFFFFFFFFULL
 #define EVQL_MAX_HASH_DIMS 8192
-#define EVQL_PROBE_SAMPLES 4096
 
 typedef unsigned long long u64;
 
@@ -146,45 +155,170 @@ dim_join_kernel(const void* fact, int fact_dt, long long n, const u64* dim_keys,
   }
 }
 
-// `step` dimension rows lie between two samples, `m` = ceil(D / step) samples
-// (<= EVQL_PROBE_SAMPLES): sample i is sorted_keys[i * step].
-__global__ void __launch_bounds__(512)
-probe_join_kernel(const void* fact, int fact_dt, long long n, const u64* sorted_keys,
-                  const int32_t* sorted_bucket, int D, int step, int m, int32_t* out) {
-  __shared__ u64 samples[EVQL_PROBE_SAMPLES];
-  for (int i = threadIdx.x; i < m; i += blockDim.x) {
-    samples[i] = sorted_keys[(long long)i * step];
-  }
-  __syncthreads();
+// -- the table in global memory ----------------------------------------------
+//
+// table[0 .. slots) are the hash slots, table[slots] holds the bucket of the
+// all-ones key (or -1). While the table is built a slot's value is a
+// dimension row (INT_MAX: none yet), afterwards its bucket.
 
+struct __align__(16) Slot {
+  u64 key;
+  int32_t val;
+  int32_t pad;
+};
+
+__global__ void table_fill_kernel(Slot* table, long long slots) {
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x; row < n;
-       row += stride) {
-    const u64 k = load_key(fact, fact_dt, row);
-    // j = the number of samples below k: the lower bound of k lies in
-    // ((j - 1) * step, j * step]
-    int lo = 0, hi = m;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (samples[mid] < k) lo = mid + 1; else hi = mid;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i <= slots;
+       i += stride) {
+    table[i] = Slot{EVQL_EMPTY_KEY, INT_MAX, 0};
+  }
+}
+
+__global__ void table_insert_kernel(Slot* table, long long slots, const u64* dim_keys,
+                                    int D) {
+  const uint32_t wrap = (uint32_t)(slots - 1);
+  const int stride = gridDim.x * blockDim.x;
+  for (long long d = (long long)blockIdx.x * blockDim.x + threadIdx.x; d < D; d += stride) {
+    const u64 k = dim_keys[d];
+    if (k == EVQL_EMPTY_KEY) {
+      atomicMin(&table[slots].val, (int32_t)d);
+      continue;
     }
-    long long a = lo == 0 ? 0 : (long long)(lo - 1) * step + 1;
-    long long b = (long long)lo * step;
-    if (b > D) b = D;
-    while (a < b) {
-      const long long mid = (a + b) >> 1;
-      if (sorted_keys[mid] < k) a = mid + 1; else b = mid;
+    uint32_t s = slot_hash(k) & wrap;
+    while (true) {
+      const u64 prev = atomicCAS(&table[s].key, EVQL_EMPTY_KEY, k);
+      if (prev == EVQL_EMPTY_KEY || prev == k) {
+        atomicMin(&table[s].val, (int32_t)d);
+        break;
+      }
+      s = (s + 1u) & wrap;
     }
-    out[row] = (a < D && sorted_keys[a] == k) ? sorted_bucket[a] : -1;
+  }
+}
+
+__global__ void table_buckets_kernel(Slot* table, long long slots,
+                                     const int32_t* dim_bucket) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i <= slots;
+       i += stride) {
+    const int32_t row = table[i].val;
+    table[i].val = row == INT_MAX ? -1 : dim_bucket[row];
+  }
+}
+
+#define EVQL_PROBE_ROWS 8  // rows a thread takes per loop turn
+
+// one aligned 16-byte load: the slot's key and, in the low word of .y, its
+// value. Through the read-only path (ld.global.nc): the same gather as a
+// cached-in-L2-only load (__ldcg) took four times as long on the H100.
+__device__ __forceinline__ ulonglong2 load_slot(const Slot* table, uint32_t s) {
+  return __ldg((const ulonglong2*)table + s);
+}
+
+// keys -> buckets for EVQL_PROBE_ROWS rows: every first probe is in flight
+// before the first is looked at
+__device__ __forceinline__ void probe_rows(const Slot* table, uint32_t wrap,
+                                           int32_t all_ones_val,
+                                           const u64 (&k)[EVQL_PROBE_ROWS],
+                                           int32_t (&g)[EVQL_PROBE_ROWS]) {
+  uint32_t s[EVQL_PROBE_ROWS];
+  ulonglong2 e[EVQL_PROBE_ROWS];
+#pragma unroll
+  for (int i = 0; i < EVQL_PROBE_ROWS; ++i) {
+    s[i] = slot_hash(k[i]) & wrap;
+    e[i] = load_slot(table, s[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < EVQL_PROBE_ROWS; ++i) {
+    if (k[i] == EVQL_EMPTY_KEY) {
+      g[i] = all_ones_val;
+      continue;
+    }
+    // the load is at most one half: an empty slot ends every search
+    while (e[i].x != k[i] && e[i].x != EVQL_EMPTY_KEY) {
+      s[i] = (s[i] + 1u) & wrap;
+      e[i] = load_slot(table, s[i]);
+    }
+    g[i] = e[i].x == k[i] ? (int32_t)(uint32_t)e[i].y : -1;
+  }
+}
+
+// T is the stored key type; 16 / sizeof(T) keys make one vector, and a thread
+// takes EVQL_PROBE_ROWS * sizeof(T) / 16 vectors a turn, each a block's width
+// away from the next so that a warp's loads are consecutive.
+template <typename T>
+__global__ void __launch_bounds__(256)
+probe_table_kernel(const T* fact, long long n, int aligned, const Slot* table,
+                   long long slots, int32_t* out) {
+  constexpr int R = EVQL_PROBE_ROWS;
+  constexpr int VEC = 16 / (int)sizeof(T);  // keys a vector
+  constexpr int NV = R / VEC;               // vectors a thread and turn
+  const uint32_t wrap = (uint32_t)(slots - 1);
+  const int32_t all_ones_val = table[slots].val;
+  const long long tile = (long long)blockDim.x * R;
+  const long long tiles = (n + tile - 1) / tile;
+  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const long long base = t * tile;
+    u64 k[R];
+    int32_t g[R];
+    if (aligned && base + tile <= n) {
+      const uint4* vin = (const uint4*)(fact + base);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const uint4 x = __ldg(vin + j * blockDim.x + threadIdx.x);
+        const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+        for (int i = 0; i < VEC; ++i) {
+          if constexpr (sizeof(T) == 8) {
+            k[j * VEC + i] = (u64)w[2 * i] | ((u64)w[2 * i + 1] << 32);
+          } else if constexpr (sizeof(T) == 4) {
+            k[j * VEC + i] = w[i];
+          } else {
+            k[j * VEC + i] = (w[i / 2] >> (16 * (i % 2))) & 0xFFFFu;
+          }
+        }
+      }
+      probe_rows(table, wrap, all_ones_val, k, g);
+      // row of k[j * VEC + i]: base + (j * blockDim.x + threadIdx.x) * VEC + i
+      int4* vout = (int4*)(out + base);
+#pragma unroll
+      for (int j = 0; j < NV; ++j) {
+        const long long v = (long long)j * blockDim.x + threadIdx.x;
+        if constexpr (VEC == 2) {
+          ((int2*)vout)[v] = make_int2(g[2 * j], g[2 * j + 1]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < VEC / 4; ++q) {
+            vout[v * (VEC / 4) + q] = make_int4(g[j * VEC + 4 * q], g[j * VEC + 4 * q + 1],
+                                                g[j * VEC + 4 * q + 2], g[j * VEC + 4 * q + 3]);
+          }
+        }
+      }
+    } else {
+      // scalar loads, consecutive threads on consecutive rows; rows >= n
+      // probe the key 0 and are not stored
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const long long row = base + (long long)i * blockDim.x + threadIdx.x;
+        k[i] = row < n ? (u64)fact[row] : 0ULL;
+      }
+      probe_rows(table, wrap, all_ones_val, k, g);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const long long row = base + (long long)i * blockDim.x + threadIdx.x;
+        if (row < n) out[row] = g[i];
+      }
+    }
   }
 }
 
 namespace {
 
 // blocks that cover the card once at the kernel's own occupancy, or fewer
-// when n rows need fewer (four rows a thread)
+// when n rows need fewer at `rows` rows a thread
 template <typename Kernel>
-int grid_for(Kernel kernel, int threads, size_t smem, long long n, int* blocks) {
+int grid_for(Kernel kernel, int threads, size_t smem, long long n, int rows, int* blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
@@ -193,7 +327,8 @@ int grid_for(Kernel kernel, int threads, size_t smem, long long n, int* blocks) 
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
   if (e != cudaSuccess) return (int)e;
   if (per_sm < 1) return (int)cudaErrorLaunchOutOfResources;
-  const long long want = (n + (long long)threads * 4 - 1) / ((long long)threads * 4);
+  const long long per_block = (long long)threads * rows;
+  const long long want = (n + per_block - 1) / per_block;
   const long long cap = (long long)sms * per_sm;
   *blocks = (int)(want < cap ? want : cap);
   if (*blocks < 1) *blocks = 1;
@@ -220,7 +355,7 @@ extern "C" int evql_dim_join_gid(const void* fact, int fact_dt, long long n,
       dim_join_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   int blocks = 0;
-  int rc = grid_for(dim_join_kernel, threads, smem, n, &blocks);
+  int rc = grid_for(dim_join_kernel, threads, smem, n, 4, &blocks);
   if (rc) return rc;
   dim_join_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       fact, fact_dt, n, (const u64*)dim_keys, (const int32_t*)dim_bucket, D, slots,
@@ -228,22 +363,62 @@ extern "C" int evql_dim_join_gid(const void* fact, int fact_dt, long long n,
   return (int)cudaGetLastError();
 }
 
-// Bucket of the equal dimension key, sorted table in global memory.
-// sorted_keys is u64[D] ascending as unsigned, sorted_bucket int32[D] in the
-// same order, D >= 1; out is int32[n].
-extern "C" int evql_probe_join_gid(const void* fact, int fact_dt, long long n,
-                                   const void* sorted_keys, const void* sorted_bucket,
-                                   int D, void* out, void* stream) {
-  if (n <= 0) return 0;
-  if (D < 1 || bad_dt(fact_dt)) return (int)cudaErrorInvalidValue;
-  const int step = (D + EVQL_PROBE_SAMPLES - 1) / EVQL_PROBE_SAMPLES;
-  const int m = (D + step - 1) / step;
-  const int threads = 512;
+namespace {
+
+template <typename T>
+int launch_probe(const void* fact, long long n, const Slot* table, long long slots,
+                 int32_t* out, cudaStream_t stream) {
+  const int threads = 256;
   int blocks = 0;
-  int rc = grid_for(probe_join_kernel, threads, 0, n, &blocks);
+  const int rc = grid_for(probe_table_kernel<T>, threads, 0, n, EVQL_PROBE_ROWS, &blocks);
   if (rc) return rc;
-  probe_join_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      fact, fact_dt, n, (const u64*)sorted_keys, (const int32_t*)sorted_bucket, D, step,
-      m, (int32_t*)out);
+  const int aligned = (((uintptr_t)fact | (uintptr_t)out) & 15u) == 0;
+  probe_table_kernel<T><<<blocks, threads, 0, stream>>>((const T*)fact, n, aligned, table,
+                                                        slots, out);
   return (int)cudaGetLastError();
+}
+
+bool bad_slots(long long slots) {
+  return slots < 2 || slots > (1LL << 32) || (slots & (slots - 1)) != 0;
+}
+
+}  // namespace
+
+// Build the hash table of the dimension side in global memory. dim_keys is
+// u64[D] in any order, dim_bucket int32[D], D >= 1; `slots` is a power of two
+// >= 2 * D (at most 2^32); table is uninitialised device memory of
+// (slots + 1) * 16 bytes on a 16-byte boundary.
+extern "C" int evql_build_join_table(const void* dim_keys, const void* dim_bucket, int D,
+                                     long long slots, void* table, void* stream) {
+  if (D < 1 || bad_slots(slots) || slots < 2LL * D || ((uintptr_t)table & 15u) != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = (cudaStream_t)stream;
+  Slot* t = (Slot*)table;
+  const int threads = 256;
+  auto blocks_for = [](long long items) {
+    const long long b = (items + threads - 1) / threads;
+    return (int)(b < 4096 ? b : 4096);
+  };
+  const int fill_blocks = blocks_for(slots + 1);
+  table_fill_kernel<<<fill_blocks, threads, 0, st>>>(t, slots);
+  table_insert_kernel<<<blocks_for(D), threads, 0, st>>>(t, slots, (const u64*)dim_keys, D);
+  table_buckets_kernel<<<fill_blocks, threads, 0, st>>>(t, slots, (const int32_t*)dim_bucket);
+  return (int)cudaGetLastError();
+}
+
+// Bucket of the equal dimension key for n fact keys, against a table built by
+// evql_build_join_table with the same `slots`; out is int32[n].
+extern "C" int evql_probe_join_table(const void* fact, int fact_dt, long long n,
+                                     const void* table, long long slots, void* out,
+                                     void* stream) {
+  if (n <= 0) return 0;
+  if (bad_slots(slots) || bad_dt(fact_dt)) return (int)cudaErrorInvalidValue;
+  const Slot* t = (const Slot*)table;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (fact_dt) {
+    case DT_U16: return launch_probe<uint16_t>(fact, n, t, slots, (int32_t*)out, st);
+    case DT_U32: return launch_probe<uint32_t>(fact, n, t, slots, (int32_t*)out, st);
+    default: return launch_probe<u64>(fact, n, t, slots, (int32_t*)out, st);
+  }
 }

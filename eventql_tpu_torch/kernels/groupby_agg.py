@@ -9,13 +9,20 @@ The port of the two TPU kernels of eventql_tpu/kernels/pallas_groupby.py:
 * ``groupby_multi_agg`` replaces ``_multi_agg_kernel``
   (``pallas_multi_sum``): count and S sums per bucket under one pass.
 
-Both are the CUDA C++ template in ``csrc/groupby_agg.cu``: a grid-stride
-scan whose blocks accumulate with 64-bit atomics into a table in shared
-memory (global memory when (1+S) x K slots do not fit) and flush it at
-the end. The kernel is bound by bytes: each stream is read once at its
-stored width, so the least time is n x (sum of stream widths) over the
-card's memory bandwidth. Nothing of the TPU design (one-hot matmul,
-int8 limb planes, carry planes, bucket chunking) is carried over.
+Both are the CUDA C++ template in ``csrc/groupby_agg.cu``. The kernel is
+bound by bytes: each stream is read once at its stored width, so the
+least time is n x (sum of stream widths) over the card's memory
+bandwidth. To come near it a thread takes 8 consecutive rows per loop
+turn (4 above two sums) and reads each stream with 16-byte loads before
+its first add; a stream that does not start on a 16-byte boundary takes
+scalar loads in the same kernel. After that the instructions per row
+are what is left, so each compare reaches the kernel as a closed range.
+The adds go to a table in each block's shared memory as 32-bit atomics
+with a carry (a 64-bit add there is a compare-and-swap loop), flushed to
+the result at the end; when (1+S) x K slots do not fit one block
+(``table_in_shared_memory``), 64-bit atomics go straight to the result
+in global memory. Nothing of the TPU design (one-hot matmul, int8 limb
+planes, carry planes, bucket chunking) is carried over.
 
 Contract, shared with the TPU kernels: counts are exact, sums are exact
 mod 2^64 over the low ``value_bits`` of each value read as unsigned.
@@ -173,6 +180,28 @@ def _plain(gid, n, num_buckets, values, value_masks, mask, preds, combine,
 
 # -- kernel launches ----------------------------------------------------------
 
+def table_in_shared_memory(num_buckets: int, nsums: int, smem_optin: int) -> bool:
+    """Whether the (1 + nsums) x num_buckets table of 64-bit slots fits
+    the ``smem_optin`` bytes of shared memory one block may opt in to,
+    so that every block accumulates into a table of its own; otherwise
+    the kernel adds straight into the result in global memory."""
+    return (1 + int(nsums)) * int(num_buckets) * 8 <= int(smem_optin)
+
+
+_smem_optin = {}  # device index -> bytes
+
+
+def smem_optin(device: torch.device) -> int:
+    """Bytes of shared memory one block may opt in to on ``device``."""
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index not in _smem_optin:
+        nbytes = ctypes.c_int(0)
+        with torch.cuda.device(index):
+            _raise_cuda("smem_optin", _lib().evql_groupby_smem_optin(ctypes.byref(nbytes)))
+        _smem_optin[index] = nbytes.value
+    return _smem_optin[index]
+
+
 _lib_ready = False
 
 
@@ -192,17 +221,19 @@ def _lib():
             vp, ci, ci, ci, ci,
             ci,
             vp, ci, cull,
-            ci, cll, ci, vp,
+            ci, cll, ci, ci, vp,
             vp,
         ]
         lib.evql_groupby_agg.restype = ci
         lib.evql_groupby_multi_agg.argtypes = [
             vp, ci, vp,
             ci, ctypes.POINTER(vp), ctypes.POINTER(ci), ctypes.POINTER(cull),
-            cll, ci, vp,
+            cll, ci, ci, vp,
             vp,
         ]
         lib.evql_groupby_multi_agg.restype = ci
+        lib.evql_groupby_smem_optin.argtypes = [ctypes.POINTER(ci)]
+        lib.evql_groupby_smem_optin.restype = ci
         _lib_ready = True
     return lib
 
@@ -286,7 +317,9 @@ def groupby_agg(
             None if values is None else values.data_ptr(),
             0 if values is None else _dt_code(values, values_unsigned),
             vmask,
-            _fold_i32(gid_base), n, K, out.data_ptr(),
+            _fold_i32(gid_base), n, K,
+            table_in_shared_memory(K, len(vals), smem_optin(gid.device)),
+            out.data_ptr(),
             torch.cuda.current_stream(gid.device).cuda_stream,
         )
     _raise_cuda("groupby_agg", rc)
@@ -347,7 +380,8 @@ def groupby_multi_agg(
             gid.data_ptr(), _dt_code(gid, gid_unsigned),
             None if mask is None else mask.data_ptr(),
             S, ptrs, dts, masks,
-            n, K, out.data_ptr(),
+            n, K, table_in_shared_memory(K, S, smem_optin(gid.device)),
+            out.data_ptr(),
             torch.cuda.current_stream(gid.device).cuda_stream,
         )
     _raise_cuda("groupby_multi_agg", rc)

@@ -15,21 +15,27 @@ The two TPU kernels and their ports (``csrc/join.cu``):
   rows. It has no fingerprint precondition.
 * ``probe_join_gid`` replaces ``_window_join_kernel`` /
   ``_window_join_pallas`` (reached through ``merge_join_gid``): any
-  number of dimension rows, sorted by key outside the kernel
-  (``build_side``) and searched in global memory. Facts are probed in
-  row order, not sorted first.
+  number of dimension rows, in any order. ``build_join_table`` builds an
+  open-addressed hash table of 16-byte slots in global memory on the
+  card (``table_slots`` of them: a power of two, at least twice the
+  rows), and the probe kernel looks every fact row up in it, in row
+  order. Neither side is sorted.
 
-Both compare all 64 bits of the key and return the whole int32 bucket.
-Both are bound by bytes: the fact key read once at its stored width,
-one int32 written per row, the dimension table read once.
+Both compare all 64 bits of the key and return the whole int32 bucket;
+among duplicate dimension keys the lowest row wins. Both are bound by
+bytes: the fact key read once at its stored width, one int32 written per
+row, the dimension table read once. What the big-table probe waits for
+is random 32-byte sectors from the L2 (about 1.25 a row), so each thread
+keeps eight lookups in flight.
 
 Keys are unsigned 64-bit integers carried as int64 bit patterns
 (kernels/groupby.py). A fact key stream may also be the int32 / int16
 tensor of a physically narrowed unsigned column; kernels and plain
-versions zero-extend it. Sorted keys are bit patterns in ascending
-*unsigned* order; the torch ops below sort and search ``key ^ (1 << 63)``.
+versions zero-extend it. ``build_side`` returns bit patterns in
+ascending *unsigned* order; the torch ops below sort and search
+``key ^ (1 << 63)``.
 
-Each wrapper launches its kernel for CUDA tensors and uses the plain
+Each wrapper launches its kernels for CUDA tensors and uses the plain
 PyTorch version (``*_plain``: ``build_side`` + ``dim_join_gather`` + a
 bucket gather) for CPU tensors only. ``LAUNCHES`` counts kernel launches
 per wrapper.
@@ -46,11 +52,11 @@ from eventql_tpu_torch.kernels import _build
 from eventql_tpu_torch.kernels.groupby_agg import groupby_agg
 
 # kernel launches per wrapper (plain-version calls do not count)
-LAUNCHES = {"dim_join_gid": 0, "probe_join_gid": 0}
+LAUNCHES = {"dim_join_gid": 0, "probe_join_gid": 0, "build_join_table": 0}
 
 # tier boundary: up to here the dimension side fits the shared-memory
 # hash table of dim_join_gid (16384 slots at a load of one half); above
-# it probe_join_gid searches the sorted side in global memory
+# it probe_join_gid probes a hash table in global memory
 MAX_COMPARE_DIMS = 8192
 
 _SIGN = -(1 << 63)  # int64 with only the top bit set
@@ -155,11 +161,20 @@ def dim_join_gid_plain(fact_keys, dim_keys, dim_bucket, n=None):
     return _plain(fact_keys, n, sk, perm, dim_bucket)
 
 
-def probe_join_gid_plain(fact_keys, sorted_dim_keys, sorted_dim_bucket, n=None):
+def probe_join_gid_plain(fact_keys, dim_keys, dim_bucket, n=None):
     """Plain PyTorch version of ``probe_join_gid``."""
-    n = _checked(fact_keys, sorted_dim_keys, sorted_dim_bucket, n)
-    perm = torch.arange(sorted_dim_keys.shape[0], device=fact_keys.device)
-    return _plain(fact_keys, n, sorted_dim_keys, perm, sorted_dim_bucket)
+    n = _checked(fact_keys, dim_keys, dim_bucket, n)
+    sk, perm = build_side(dim_keys)
+    return _plain(fact_keys, n, sk, perm, dim_bucket)
+
+
+def table_slots(n_dims: int) -> int:
+    """Slots of the global-memory hash table for ``n_dims`` dimension
+    rows: the power of two that keeps the load at or under one half
+    (at least 2, so that an empty slot always ends a search)."""
+    if n_dims < 1:
+        raise ValueError("a hash table needs at least one dimension row")
+    return 1 << max(1, (2 * int(n_dims) - 1).bit_length())
 
 
 _lib_ready = False
@@ -170,29 +185,46 @@ def _lib():
     lib = _build.load("join")
     if not _lib_ready:
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        for fn in (lib.evql_dim_join_gid, lib.evql_probe_join_gid):
-            fn.argtypes = [vp, ci, cll, vp, vp, ci, vp, vp]
+        lib.evql_dim_join_gid.argtypes = [vp, ci, cll, vp, vp, ci, vp, vp]
+        lib.evql_build_join_table.argtypes = [vp, vp, ci, cll, vp, vp]
+        lib.evql_probe_join_table.argtypes = [vp, ci, cll, vp, cll, vp, vp]
+        for fn in (lib.evql_dim_join_gid, lib.evql_build_join_table,
+                   lib.evql_probe_join_table):
             fn.restype = ci
         _lib_ready = True
     return lib
 
 
-def _launch(name, fact_keys, n, dim_keys, dim_bucket):
-    device = fact_keys.device
-    if n == 0 or dim_keys.shape[0] == 0:
-        # nothing to probe, or nothing to find: no launch
-        return torch.full((n,), -1, dtype=torch.int32, device=device)
-    out = torch.empty(n, dtype=torch.int32, device=device)
-    with torch.cuda.device(device):
-        rc = getattr(_lib(), "evql_" + name)(
-            fact_keys.data_ptr(), _KEY_DT[fact_keys.dtype], n,
-            dim_keys.data_ptr(), dim_bucket.data_ptr(), dim_keys.shape[0],
-            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
-        )
+def _raise_cuda(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
-    LAUNCHES[name] += 1
-    return out
+
+
+def build_join_table(dim_keys: torch.Tensor, dim_bucket: torch.Tensor) -> torch.Tensor:
+    """The hash table ``probe_join_gid`` looks its fact keys up in, built
+    on the card from D >= 1 dimension rows in any order: int64
+    [2 * (table_slots(D) + 1)], two words a slot (the key; the bucket in
+    the low half of the second), the last slot for the all-ones key. The
+    slots' order depends on the order the card's threads ran in; what a
+    key finds does not. CUDA tensors only: the plain version has no
+    table."""
+    if not dim_keys.is_cuda:
+        raise ValueError("build_join_table: the table is built on a CUDA device only")
+    _checked(dim_keys, dim_keys, dim_bucket, 0)
+    slots = table_slots(dim_keys.shape[0])
+    table = torch.empty(2 * (slots + 1), dtype=torch.int64, device=dim_keys.device)
+    with torch.cuda.device(dim_keys.device):
+        rc = _lib().evql_build_join_table(
+            dim_keys.data_ptr(), dim_bucket.data_ptr(), dim_keys.shape[0], slots,
+            table.data_ptr(), torch.cuda.current_stream(dim_keys.device).cuda_stream,
+        )
+    _raise_cuda("build_join_table", rc)
+    LAUNCHES["build_join_table"] += 1
+    return table
+
+
+def _no_rows(n, device):
+    return torch.full((n,), -1, dtype=torch.int32, device=device)
 
 
 def dim_join_gid(
@@ -213,38 +245,60 @@ def dim_join_gid(
     if not fact_keys.is_cuda:
         return dim_join_gid_plain(fact_keys, dim_keys, dim_bucket, n)
     n = _checked(fact_keys, dim_keys, dim_bucket, n, MAX_COMPARE_DIMS)
-    return _launch("dim_join_gid", fact_keys, n, dim_keys, dim_bucket)
+    device = fact_keys.device
+    if n == 0 or dim_keys.shape[0] == 0:
+        return _no_rows(n, device)  # nothing to probe, or nothing to find
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        rc = _lib().evql_dim_join_gid(
+            fact_keys.data_ptr(), _KEY_DT[fact_keys.dtype], n,
+            dim_keys.data_ptr(), dim_bucket.data_ptr(), dim_keys.shape[0],
+            out.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_cuda("dim_join_gid", rc)
+    LAUNCHES["dim_join_gid"] += 1
+    return out
 
 
 def probe_join_gid(
     fact_keys: torch.Tensor,
-    sorted_dim_keys: torch.Tensor,
-    sorted_dim_bucket: torch.Tensor,
+    dim_keys: torch.Tensor,
+    dim_bucket: torch.Tensor,
     n: Optional[int] = None,
 ) -> torch.Tensor:
     """Per fact row < ``n``, in row order: the bucket of the equal key
-    in a dimension table of any size, or -1. The dimension keys must be
-    ascending in unsigned order (``build_side``) with the buckets in the
-    same order; nothing checks that, and an unsorted table gives misses.
-    Among duplicate dimension keys the first in sorted order wins (the
-    lowest dimension row, after the stable ``build_side``). An empty
-    dimension table gives all -1.
+    in a dimension table of any size, or -1. The dimension rows come in
+    any order (``build_join_table`` hashes them on the card; sorted keys
+    are as good as any). Among duplicate dimension keys the lowest
+    dimension row wins. An empty dimension table gives all -1.
 
     Shapes and types as ``dim_join_gid``."""
     if not fact_keys.is_cuda:
-        return probe_join_gid_plain(fact_keys, sorted_dim_keys, sorted_dim_bucket, n)
-    n = _checked(fact_keys, sorted_dim_keys, sorted_dim_bucket, n)
-    return _launch("probe_join_gid", fact_keys, n, sorted_dim_keys, sorted_dim_bucket)
+        return probe_join_gid_plain(fact_keys, dim_keys, dim_bucket, n)
+    n = _checked(fact_keys, dim_keys, dim_bucket, n)
+    device = fact_keys.device
+    if n == 0 or dim_keys.shape[0] == 0:
+        return _no_rows(n, device)
+    table = build_join_table(dim_keys, dim_bucket)
+    out = torch.empty(n, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        rc = _lib().evql_probe_join_table(
+            fact_keys.data_ptr(), _KEY_DT[fact_keys.dtype], n, table.data_ptr(),
+            table_slots(dim_keys.shape[0]), out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream,
+        )
+    _raise_cuda("probe_join_gid", rc)
+    LAUNCHES["probe_join_gid"] += 1
+    return out
 
 
 def join_gid(fact_keys, dim_keys, dim_bucket, n=None) -> torch.Tensor:
     """The probe by tier, chosen from the dimension count alone: up to
-    ``MAX_COMPARE_DIMS`` rows ``dim_join_gid``, above it ``build_side``
-    and ``probe_join_gid``."""
+    ``MAX_COMPARE_DIMS`` rows ``dim_join_gid``, above it
+    ``probe_join_gid``. Neither sorts."""
     if dim_keys.shape[0] <= MAX_COMPARE_DIMS:
         return dim_join_gid(fact_keys, dim_keys, dim_bucket, n)
-    sk, perm = build_side(dim_keys)
-    return probe_join_gid(fact_keys, sk, dim_bucket[perm].contiguous(), n)
+    return probe_join_gid(fact_keys, dim_keys, dim_bucket, n)
 
 
 # -- aggregate entry points ---------------------------------------------------
@@ -292,18 +346,17 @@ def sorted_merge_join_aggregate(
     key_bound=None,
 ):
     """fact-dim join + GROUP BY aggregate for a dimension table of any
-    size: the dimension side is sorted (``build_side``), every fact row
-    is probed against it in row order (``probe_join_gid``), and the
-    grouped aggregate kernel takes the buckets.
+    size: every fact row is probed, in row order, against a hash table
+    of the dimension side (``probe_join_gid``), and the grouped
+    aggregate kernel takes the buckets.
 
-    The signature is the JAX function's. ``block``, ``window`` and
-    ``key_bound`` only shaped the TPU's sort of the fact side and its
-    windowed merge; the facts are not sorted here, so they are accepted
-    and have no effect. ``value_bits`` bounds the value width as there:
-    the sum takes the low ``value_bits`` of each value (rounded up to
-    whole bytes).
+    The signature is the JAX function's, and so is the name: nothing is
+    sorted or merged here. ``block``, ``window`` and ``key_bound`` only
+    shaped the TPU's sort of the fact side and its windowed merge, so
+    they are accepted and have no effect. ``value_bits`` bounds the
+    value width as there: the sum takes the low ``value_bits`` of each
+    value (rounded up to whole bytes).
 
     Returns (counts, sums) as ``fact_dim_join_aggregate``."""
-    sk, perm = build_side(dim_keys)
-    gid = probe_join_gid(fact_keys, sk, dim_bucket[perm].contiguous())
+    gid = probe_join_gid(fact_keys, dim_keys, dim_bucket)
     return _aggregate(gid, fact_values, fact_mask, num_buckets, value_bits)

@@ -94,7 +94,7 @@ def main():
                 key = _short(ev.key)
                 by_kernel[key] = by_kernel.get(key, 0.0) + dev_us / 1e3
         device_ms = sum(by_kernel.values())
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:12]
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:16]
         out = {
             "query": name, "rows": n, "profiled_wall_ms": wall_ms,
             "device_ms": device_ms,

@@ -93,12 +93,14 @@ def test_join_probes_equal_plain_versions_at_4m_rows(cuda_device, n_dims, width)
     dk = torch.from_numpy(dims.view(np.int64)).to(cuda_device)
     db = torch.from_numpy(bucket).to(cuda_device)
     before = dict(tjoin.LAUNCHES)
-    sk, perm = tjoin.build_side(dk)
-    sb = db[perm].contiguous()
-    got = tjoin.probe_join_gid(f, sk, sb, n - 3)
-    assert torch.equal(got, tjoin.probe_join_gid_plain(f, sk, sb, n - 3))
+    got = tjoin.probe_join_gid(f, dk, db, n - 3)  # the dims as they come: unsorted
+    assert torch.equal(got, tjoin.probe_join_gid_plain(f, dk, db, n - 3))
     assert 0 < int((got >= 0).sum()) < n
     assert tjoin.LAUNCHES["probe_join_gid"] == before["probe_join_gid"] + 1
+    assert tjoin.LAUNCHES["build_join_table"] == before["build_join_table"] + 1
+    # sorted dimension rows are as valid an input
+    sk, perm = tjoin.build_side(dk)
+    assert torch.equal(got, tjoin.probe_join_gid(f, sk, db[perm].contiguous(), n - 3))
     if n_dims <= tjoin.MAX_COMPARE_DIMS:
         got = tjoin.dim_join_gid(f, dk, db, n - 3)
         assert torch.equal(got, tjoin.dim_join_gid_plain(f, dk, db, n - 3))
@@ -106,6 +108,96 @@ def test_join_probes_equal_plain_versions_at_4m_rows(cuda_device, n_dims, width)
     else:
         with pytest.raises(ValueError):
             tjoin.dim_join_gid(f, dk, db)
+
+
+@pytest.mark.parametrize("n_dims", [10, 5000, 8193, 20_000])
+@pytest.mark.parametrize("skip", [0, 1, 3])
+def test_probe_join_gid_duplicate_keys_and_sliced_facts_on_the_card(
+        cuda_device, n_dims, skip):
+    """The CPU cases of tests/test_torch_join_kernels.py on the card:
+    every third dimension key again further down (the lowest row wins),
+    the fact stream sliced off its 16-byte boundary, lengths around one
+    tile of the probe kernel."""
+    from eventql_tpu_torch.kernels import join as tjoin
+
+    rng = np.random.default_rng(n_dims)
+    dk = rng.permutation(np.arange(n_dims, dtype=np.uint64) * 104729 + 11)
+    dk[::2] |= np.uint64(1 << 63)
+    dk = np.concatenate([dk, dk[::3]])
+    db = rng.integers(0, 1 << 30, len(dk)).astype(np.int32)
+    fact = np.concatenate([dk[rng.integers(0, len(dk), 5000)],
+                           rng.integers(0, 1 << 40, 500).astype(np.uint64)])
+    fact = rng.permutation(fact)
+    lut = {}
+    for k, b in zip(dk, db):
+        lut.setdefault(int(k), int(b))
+    want = np.array([lut.get(int(k), -1) for k in fact], dtype=np.int32)
+    f = torch.from_numpy(fact.view(np.int64)).to(cuda_device)[skip:]
+    t_dk = torch.from_numpy(dk.view(np.int64)).to(cuda_device)
+    t_db = torch.from_numpy(db).to(cuda_device)
+    for n in (1, 7, 2047, 2048, 2049, len(fact) - skip):
+        got = tjoin.probe_join_gid(f, t_dk, t_db, n)
+        np.testing.assert_array_equal(got.cpu().numpy(), want[skip:skip + n])
+        np.testing.assert_array_equal(
+            tjoin.join_gid(f, t_dk, t_db, n).cpu().numpy(), want[skip:skip + n])
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3, 7])
+def test_groupby_kernels_on_sliced_streams_on_the_card(cuda_device, offset):
+    """The CPU cases of tests/test_torch_groupby_kernels.py on the card:
+    every stream sliced ``offset`` rows into its allocation, n = 1 .. 17
+    and a long stream, against the plain version."""
+    from eventql_tpu_torch.kernels import groupby_agg as ga
+
+    rng = np.random.default_rng(offset)
+    m = 100_003 + offset
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda_device)[offset:]
+    mask = dev(rng.random(m) < 0.8)
+    pred = dev(rng.integers(0, 1000, m).astype(np.int32))
+    a = dev(rng.integers(0, 1 << 16, m).astype(np.uint16).view(np.int16))
+    b = dev(rng.integers(0, 1 << 32, m, dtype=np.uint32).view(np.int32))
+    c = dev(rng.integers(0, 1 << 64, m, dtype=np.uint64).view(np.int64))
+    for key_dt in (np.int16, np.int32, np.int64):
+        gid = dev(rng.integers(-1, 6, m).astype(key_dt))
+        for n in (*range(1, 18), m - offset):
+            kw = dict(gid=gid, n=n, num_buckets=5, values=a, value_bits=16,
+                      mask=mask, preds=[ga.Pred("stream", "lt", 700, pred)],
+                      values_unsigned=True)
+            assert torch.equal(ga.groupby_agg(**kw), ga.groupby_agg_plain(**kw))
+            kw = dict(gid=gid, n=n, num_buckets=5, streams=[a, b, c],
+                      stream_bits=[16, 32, 64], mask=mask,
+                      streams_unsigned=[True, False, False])
+            assert torch.equal(ga.groupby_multi_agg(**kw),
+                               ga.groupby_multi_agg_plain(**kw))
+
+
+@pytest.mark.parametrize("nsums", [0, 1, 8])
+def test_table_form_edges_on_the_card(cuda_device, nsums):
+    """K on both sides of the edge between the table in shared memory
+    and the table in global memory on this device, with 64-bit values
+    so that the 32-bit words carry."""
+    import chip_smoke
+    from eventql_tpu_torch.kernels import groupby_agg as ga
+
+    optin = ga.smem_optin(cuda_device)
+    assert optin >= 48 * 1024
+    n = 300_007
+    rng = np.random.default_rng(nsums)
+    vals = torch.from_numpy(rng.integers(0, 1 << 64, n, dtype=np.uint64).view(np.int64))
+    vals = vals.to(cuda_device)
+    forms = set()
+    for K in chip_smoke.table_form_edges(nsums, cuda_device):
+        forms.add(ga.table_in_shared_memory(K, nsums, optin))
+        gid = torch.from_numpy(rng.integers(-2, K + 2, n).astype(np.int32)).to(cuda_device)
+        if nsums == 0:
+            kw = dict(gid=gid, n=n, num_buckets=K)
+            assert torch.equal(ga.groupby_agg(**kw), ga.groupby_agg_plain(**kw))
+        else:
+            kw = dict(gid=gid, n=n, num_buckets=K, streams=[vals] * nsums,
+                      stream_bits=[64] * nsums)
+            assert torch.equal(ga.groupby_multi_agg(**kw),
+                               ga.groupby_multi_agg_plain(**kw))
+    assert forms == {True, False}
 
 
 def test_join_query_on_the_card_equals_host_engine(cuda_device):

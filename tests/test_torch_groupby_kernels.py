@@ -397,3 +397,121 @@ def test_cpu_tensors_never_launch():
     out = ga.groupby_agg(gid, 10, 3)
     assert out.tolist() == [[4, 3, 3]]
     assert ga.LAUNCHES == before
+
+
+# -- streams that start inside an allocation, and the shortest streams ----------
+# The kernel reads runs of rows with 16-byte loads where a stream starts
+# on a 16-byte boundary and falls back to scalar loads where it does not;
+# the wrapper must hand both over unchanged. On the CPU these cases pin
+# the wrapper and the plain version at the same offsets and lengths the
+# card's tests use.
+
+
+@pytest.mark.parametrize("offset", [1, 3, 7])
+@pytest.mark.parametrize("n", list(range(1, 18)))
+def test_sum_count_fused_on_sliced_streams(offset, n):
+    """Key, value and predicate streams sliced ``offset`` rows into
+    their allocations, n = 1 .. 17 rows."""
+    rng = np.random.default_rng(100 * offset + n)
+    K = 5
+    gid = rng.integers(-1, K + 1, n + offset).astype(np.int16)
+    vals = rng.integers(0, 60000, n + offset).astype(np.uint16)
+    pred = rng.integers(0, 1000, n + offset).astype(np.int32)
+    jc, js = pallas_sum_count_fused(
+        jnp.asarray(gid[offset:]), jnp.asarray(vals[offset:]), jnp.int32(700),
+        jnp.int32(n), K, pred=jnp.asarray(pred[offset:]), value_bits=16,
+        pred_op="lt",
+    )
+    tg, tv, tp = _t(gid)[offset:], _t(vals)[offset:], _t(pred)[offset:]
+    assert tg.storage_offset() == offset and tg.is_contiguous()
+    tc, ts = sum_count_fused(tg, tv, 700, n, K, pred=tp, value_bits=16,
+                             pred_op="lt", values_unsigned=True)
+    _same(jc, tc)
+    _same(js, ts)
+    keep = (pred[offset:] < 700) & (gid[offset:] >= 0) & (gid[offset:] < K)
+    assert int(_u64(tc).sum()) == int(keep.sum())
+
+
+@pytest.mark.parametrize("offset", [1, 3, 7])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 8, 9, 16, 17])
+def test_multi_sum_on_sliced_streams(offset, n):
+    """Three summed streams of three widths and the byte mask, each
+    sliced ``offset`` rows into its allocation."""
+    rng = np.random.default_rng(1000 * offset + n)
+    K = 4
+    gid = rng.integers(0, K, n + offset).astype(np.int32)
+    mask = rng.random(n + offset) < 0.8
+    a = rng.integers(0, 1 << 16, n + offset).astype(np.uint16)
+    b = rng.integers(0, 1 << 32, n + offset, dtype=np.uint32)
+    c = rng.integers(0, 1 << 32, n + offset, dtype=np.uint32).view(np.int32)
+    o = offset
+    jc, jt = pallas_multi_sum(
+        jnp.asarray(mask[o:]), jnp.asarray(gid[o:]),
+        (jnp.asarray(a[o:]).astype(jnp.int32), jnp.asarray(b[o:]).astype(jnp.int32),
+         jnp.asarray(c[o:])),
+        (2, 4, 3), K,
+    )
+    tc, tt = multi_sum(_t(mask)[o:], _t(gid)[o:], [_t(a)[o:], _t(b)[o:], _t(c)[o:]],
+                       (2, 4, 3), K, streams_unsigned=(True, True, False))
+    _same(jc, tc)
+    for x, y in zip(jt, tt):
+        _same(x, y)
+
+
+def test_sums_carry_past_32_bits():
+    """The card's table adds 32-bit words and carries: 64-bit values on
+    one hot key, whose low words wrap on almost every add, and the sum
+    itself wraps mod 2^64."""
+    rng = np.random.default_rng(15)
+    n, K = 3000, 2
+    gid = np.zeros(n, np.int32)
+    vals = rng.integers(1 << 63, 1 << 64, n, dtype=np.uint64)
+    vals[::7] = 0xFFFFFFFF  # low word all ones, high word zero
+    vals[1::7] = 0xFFFFFFFF00000000
+    mask = np.ones(n, bool)
+    jc, js = pallas_sum_count(jnp.asarray(mask), jnp.asarray(gid),
+                              jnp.asarray(vals), K, value_bits=64)
+    tc, ts = sum_count(_t(mask), _t(gid), _t(vals), K, value_bits=64)
+    _same(jc, tc)
+    _same(js, ts)
+    assert int(_u64(ts)[0]) == int(vals.sum(dtype=np.uint64))
+
+
+# -- where the accumulation table lives ------------------------------------------
+
+_OPTIN = 232448  # bytes a block may opt in to on an H100 (227 KB)
+
+
+@pytest.mark.parametrize(
+    "K, nsums, want",
+    [
+        (1, 0, True),
+        (1025, 1, True),
+        (4096, 0, True),
+        (29056, 0, True),        # 29056 x 8 = 232448 exactly
+        (29057, 0, False),
+        (14528, 1, True),
+        (14529, 1, False),
+        (9685, 2, True),
+        (9686, 2, False),
+        (3228, 8, True),         # 9 planes
+        (3229, 8, False),
+        (100_000, 1, False),
+        (131_072, 0, False),
+        (131_073, 8, False),
+    ],
+)
+def test_table_in_shared_memory_edges(K, nsums, want):
+    assert ga.table_in_shared_memory(K, nsums, _OPTIN) is want
+
+
+@pytest.mark.parametrize("optin", [48 * 1024, 101_376, 166_912, _OPTIN])
+@pytest.mark.parametrize("nsums", [0, 1, 2, 8])
+def test_table_in_shared_memory_is_the_exact_byte_count(optin, nsums):
+    """For any device: the largest K that fits is optin / (8 x planes),
+    the next does not, and the answer is monotone in K and in S."""
+    whole = optin // (8 * (1 + nsums))
+    assert ga.table_in_shared_memory(whole, nsums, optin)
+    assert not ga.table_in_shared_memory(whole + 1, nsums, optin)
+    assert ga.table_in_shared_memory(1, nsums, optin)
+    assert not ga.table_in_shared_memory(whole, nsums + 1, optin)

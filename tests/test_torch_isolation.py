@@ -95,7 +95,7 @@ for make in (lambda: Runtime(), lambda: Runtime(device="cuda"),
 from eventql_tpu_torch.kernels import extract, groupby, groupby_agg, join, sort
 assert groupby_agg.LAUNCHES == {"groupby_agg": 0, "groupby_multi_agg": 0}
 assert extract.LAUNCHES == {"extract_ge": 0}
-assert join.LAUNCHES == {"dim_join_gid": 0, "probe_join_gid": 0}
+assert join.LAUNCHES == {"dim_join_gid": 0, "probe_join_gid": 0, "build_join_table": 0}
 keys = torch.tensor([7, -1, 9, 8])
 assert join.join_gid(keys, torch.tensor([9, -1]), torch.tensor([4, 5], dtype=torch.int32)
                      ).tolist() == [-1, 5, 4, -1]

@@ -316,3 +316,131 @@ def test_cpu_tensors_launch_nothing():
     dk, db, fact = _case("half miss")
     tjoin.join_gid(_t(fact), _t(dk), _t(db))
     assert tjoin.LAUNCHES == before
+
+
+# -- the hash-table probe: dimension rows in any order, duplicates ---------------
+
+
+def _merge_join_rows(fact, dk, db):
+    """The JAX package's merge_join_gid (its Pallas kernel in interpret
+    mode on the CPU) on the facts sorted, mapped back to row order."""
+    order = np.argsort(fact, kind="stable")
+    want_sorted = np.asarray(jjoin.merge_join_gid(
+        jnp.asarray(fact[order]), jnp.asarray(dk), jnp.asarray(db),
+        block=1024, window=512))
+    want = np.empty_like(want_sorted)
+    want[order] = want_sorted
+    return want
+
+
+def _reorder(dk, order):
+    if order == "given":
+        return np.arange(len(dk))
+    if order == "reversed":
+        return np.arange(len(dk))[::-1].copy()
+    if order == "sorted":
+        return np.argsort(dk, kind="stable")
+    raise KeyError(order)
+
+
+@pytest.mark.parametrize("order", ["given", "reversed", "sorted"])
+@pytest.mark.parametrize("name", PROBE_CASES)
+def test_probe_join_gid_takes_dimension_rows_in_any_order(name, order):
+    """probe_join_gid is handed the dimension side as it comes: the same
+    rows in three orders give merge_join_gid's answer, and dim_join_gid's
+    where that one takes the table."""
+    dk, db, fact = _case(name)
+    db = db % 65536
+    want = _merge_join_rows(fact, dk, db)
+    o = _reorder(dk, order)
+    got = tjoin.probe_join_gid(_t(fact), _t(dk[o]), _t(db[o]))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    if len(dk) <= tjoin.MAX_COMPARE_DIMS:
+        np.testing.assert_array_equal(
+            tjoin.dim_join_gid(_t(fact), _t(dk[o]), _t(db[o])).numpy(), want)
+
+
+@pytest.mark.parametrize("n_dims", [10, 5000, 8193, 20_000])
+def test_probe_join_gid_duplicate_keys_lowest_row_wins(n_dims):
+    """Every third dimension key appears again further down with another
+    bucket: the lowest row's bucket comes back, as from merge_join_gid
+    given only each key's first row."""
+    rng = np.random.default_rng(n_dims)
+    dk = rng.permutation(np.arange(n_dims, dtype=np.uint64) * 104729 + 11)
+    dk[::2] |= TOP
+    dk = np.concatenate([dk, dk[::3]])
+    db = rng.integers(0, 60_000, len(dk)).astype(np.int32)
+    fact = np.concatenate([dk[rng.integers(0, len(dk), 3000)],
+                           rng.integers(0, 1 << 40, 500).astype(np.uint64)])
+    want = _lookup(fact, dk, db)
+    got = tjoin.probe_join_gid(_t(fact), _t(dk), _t(db))
+    np.testing.assert_array_equal(got.numpy(), want)
+    _, first = np.unique(dk, return_index=True)
+    first.sort()
+    np.testing.assert_array_equal(_merge_join_rows(fact, dk[first], db[first]), want)
+    np.testing.assert_array_equal(tjoin.join_gid(_t(fact), _t(dk), _t(db)).numpy(), want)
+    if len(dk) <= tjoin.MAX_COMPARE_DIMS:
+        np.testing.assert_array_equal(
+            tjoin.dim_join_gid(_t(fact), _t(dk), _t(db)).numpy(), want)
+    assert (want >= 0).any() and (want < 0).any()
+
+
+@pytest.mark.parametrize("n_dims, tier", [(tjoin.MAX_COMPARE_DIMS, "dim_join_gid"),
+                                          (tjoin.MAX_COMPARE_DIMS + 1, "probe_join_gid")])
+def test_join_gid_hands_the_dimension_side_over_unsorted(monkeypatch, n_dims, tier):
+    """On either side of the tier boundary join_gid passes the dimension
+    tensors on as they are: it neither sorts nor gathers them."""
+    dk, db, fact = _case(f"{n_dims} dims")
+    t_dk, t_db = _t(dk), _t(db)
+    seen = []
+    real = getattr(tjoin, tier)
+
+    def recording(fact_keys, dim_keys, dim_bucket, n=None):
+        seen.append((dim_keys, dim_bucket))
+        return real(fact_keys, dim_keys, dim_bucket, n)
+
+    def no_sort(_keys):
+        raise AssertionError("join_gid sorted the dimension side")
+
+    monkeypatch.setattr(tjoin, tier, recording)
+    monkeypatch.setattr(tjoin, "build_side", no_sort)
+    monkeypatch.setattr(tjoin, tier + "_plain", lambda *a: torch.zeros(1))
+    tjoin.join_gid(_t(fact), t_dk, t_db)
+    assert len(seen) == 1 and seen[0][0] is t_dk and seen[0][1] is t_db
+
+
+def test_sorted_merge_join_aggregate_hands_the_dimension_side_over_unsorted(monkeypatch):
+    fk, fv, mask, dk, db = _agg_inputs(300, 2000, 8, seed=5)
+    t_dk, t_db = _t(dk), _t(db)
+    seen = []
+    real = tjoin.probe_join_gid
+    monkeypatch.setattr(
+        tjoin, "probe_join_gid",
+        lambda f, k, b, n=None: seen.append((k, b)) or real(f, k, b, n))
+    c, _s = tjoin.sorted_merge_join_aggregate(_t(fk), _t(fv), _t(mask), t_dk, t_db, 8)
+    assert len(seen) == 1 and seen[0][0] is t_dk and seen[0][1] is t_db
+    assert int(c.sum()) > 0
+
+
+@pytest.mark.parametrize("n_dims", [1, 2, 3, 4, 5, 8192, 8193, 1 << 18, (1 << 18) + 1,
+                                    1 << 22, (1 << 30) - 1, 1 << 30, (1 << 31) - 1])
+def test_table_slots_is_a_power_of_two_at_load_one_half(n_dims):
+    slots = tjoin.table_slots(n_dims)
+    assert slots & (slots - 1) == 0 and slots >= 2
+    assert 2 * n_dims <= slots < max(4 * n_dims, 3)
+    assert slots <= 1 << 32  # what the kernel's 32-bit slot index spans
+
+
+def test_table_slots_needs_a_dimension_row():
+    with pytest.raises(ValueError):
+        tjoin.table_slots(0)
+
+
+def test_build_join_table_is_for_the_card_only():
+    """The table exists on the card alone: the plain version has none,
+    and a CPU tensor raises instead of building one some other way."""
+    with pytest.raises(ValueError):
+        tjoin.build_join_table(_t(np.arange(4, dtype=np.uint64)),
+                               _t(np.arange(4, dtype=np.int32)))
+    assert tjoin.LAUNCHES["build_join_table"] == 0
