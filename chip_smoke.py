@@ -21,14 +21,25 @@ Phases (any mismatch or exception ends the run with a non-zero code):
      plain version, which must be equal (tolerance 0); then CUDA-event
      times of both beside the bound and a library call, and the warm
      end-to-end time per query; the big-table join probe also against
-     dimension tables of 16384 and 2^22 rows, and its table build alone.
+     dimension tables of 16384 and 2^22 rows, and its table build alone;
+     the small-table probe also at D = 8192 and D = 1024 with u64 keys
+     (beside the big-table probe and its global table's build at D =
+     8192), its kernel's device time at one row (its table build), and
+     the library calls beside B1's other shapes.
+
+With EVQL_PARENT_JOIN_CU naming an earlier join.cu whose
+evql_dim_join_gid has this one's C interface (the argument types
+kernels/join.py gives it), phase 2 builds it too and phase 5 holds its
+small-table probe against this one and times it on the same inputs.
 
 Prints one JSON line {"kernels": [...]} and, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import ctypes
 import inspect
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -304,6 +315,45 @@ def join_cases(n, device, rng):
         hit = keys[rng.integers(0, len(keys), n)]
         return np.where(rng.random(n) < 0.67, hit, hit + np.uint64(1)).astype(dtype)
 
+    def mixed_dims(D):
+        """D dimension keys for streams of every width: u16 keys (with
+        0xFFFF), u32 keys (with the u32 all-ones key 0xFFFFFFFF), keys of
+        2^32 and more (with the 64-bit all-ones key), half of them with
+        the low word of a narrower key of the set, and one key in 16
+        again further down under another bucket (the lowest row wins)."""
+        unique = D - D // 16
+        k16 = rng.choice(0xFFFF, unique // 4, replace=False).astype(np.uint64)
+        k32 = rng.choice(0xFFFFFFFF - 0x10000, unique // 4, replace=False) + 0x10000
+        k32 = k32.astype(np.uint64)
+        k16[0], k32[0] = 0xFFFF, 0xFFFFFFFF
+        lows = np.concatenate([k16, k32])
+        m = unique - len(lows)
+        low = np.where(np.arange(m) % 2 == 0, lows[rng.integers(0, len(lows), m)],
+                       rng.integers(0, 1 << 32, m).astype(np.uint64))
+        high = (rng.integers(1, 1 << 32, m).astype(np.uint64) << np.uint64(32)) | low
+        high[0] = ALL_ONES
+        keys = rng.permutation(np.concatenate([lows, high]))
+        check(len(np.unique(keys)) == unique, "mixed_dims: duplicate keys drawn")
+        bucket = rng.integers(0, 100_000, unique).astype(np.int32)
+        again = rng.choice(unique, D - unique, replace=False)
+        return (np.concatenate([keys, keys[again]]),
+                np.concatenate([bucket, bucket[again] + 1]))
+
+    def mixed_facts(keys, dtype):
+        """n fact keys stored as ``dtype``: each dimension key cut to the
+        stream's width (for a key of 2^32 or more on a u32 stream that is
+        a hit only where its low word is a key too), random keys of the
+        width (misses), and the width's all-ones key; with one hit and
+        one miss of the width."""
+        bits = 8 * np.dtype(dtype).itemsize
+        mask = np.uint64((1 << bits) - 1) if bits < 64 else np.uint64(ALL_ONES)
+        f = np.where(rng.random(n) < 0.6, keys[rng.integers(0, len(keys), n)] & mask,
+                     rng.integers(0, 1 << min(bits, 63), n, dtype=np.uint64))
+        f[::97] = mask
+        fits = keys[keys <= mask]
+        absent = np.setdiff1d(np.arange(64, dtype=np.uint64), keys)
+        return f.astype(dtype), fits[0], absent[0]
+
     def both(label, keys, bucket, fact, rows=None, probe_only=False, skip=0):
         dk, db, f = (dev_tensor(a, device) for a in (keys, bucket, fact))
         f = f[skip:]  # skip > 0: the stream starts off a 16-byte boundary
@@ -347,6 +397,27 @@ def join_cases(n, device, rng):
         for skip in (0, 1):
             yield from both(f"D=9001 fact keys u{bits} skip={skip}", keys, bucket, f,
                             rows=n - 7, probe_only=True, skip=skip)
+    # the same for both probes against D <= 8192 (dim_join_gid's tier, up to
+    # its edge): the sizes around one tile of dim_join_gid (1024 threads x 8
+    # rows; 512 x 8 and the probe's tile too), streams off their boundary, all
+    # three widths, each against dimension keys of every width
+    for D in (1000, kj.MAX_COMPARE_DIMS):
+        keys, bucket = mixed_dims(D)
+        for bits, dt in ((16, np.uint16), (32, np.uint32), (64, np.uint64)):
+            f, hit, miss = mixed_facts(keys, dt)
+            for skip in (0, 1):
+                yield from both(f"D={D} mixed dims, u{bits} skip={skip}", keys, bucket, f,
+                                rows=n - 7, skip=skip)
+            if D != kj.MAX_COMPARE_DIMS:
+                continue
+            for rows in (1, 2, 7, 8, 9, 2049, 4095, 4096, 4097, 8191, 8192, 8193, 16385):
+                for skip in (0, 3):
+                    g = f[:rows + skip].copy()
+                    g[skip] = hit  # the first row probed is a hit, the last a miss
+                    if rows > 1:
+                        g[-1] = miss
+                    yield from both(f"D={D} mixed dims, u{bits} n={rows} skip={skip}",
+                                    keys, bucket, g, rows=rows, skip=skip)
     keys, bucket = dims(5003)
     yield from both("ragged n", keys, bucket, facts(keys), rows=n - 12345)
     keys, bucket = dims(3001, top_bit=True)
@@ -463,6 +534,12 @@ def phase_kernels(device, n):
         check(0 < hits and (hits < rows or rows == 1),
               f"{name} [{label}]: {hits} hits in {rows} rows")
         cases += 1
+    # dim_join_gid's launcher shapes its table; kernels/join.py mirrors the rule
+    slots_of = kj._lib().evql_dim_table_slots
+    for key_bytes in (2, 4, 8):
+        for D in range(1, kj.MAX_COMPARE_DIMS + 1):
+            check(slots_of(D, key_bytes) == kj.dim_table(D, key_bytes).slots,
+                  f"dim_table({D}, {key_bytes}) is not the launcher's slot rule")
     for name, count in launch_counts().items():
         check(count > 0, f"{name}: no kernel launch in phase 3")
     log(f"phase 3: {cases} kernel cases equal to their plain versions"
@@ -1139,6 +1216,118 @@ def probe_shapes_off_the_main_path(device, n, iters):
     return out
 
 
+def kernel_device_ms(fn, iters=20):
+    """Device time of one call of ``fn`` whose kernels are shorter than
+    the host's time to launch them: CUDA events around ``iters`` calls
+    that the host queues behind a sleep kernel (about 9 ms), so that the
+    card runs them back to back, with no host gap between them; each
+    launch's own start on the card still counts."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(1 << 24)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+PARENT_JOIN_CU = "EVQL_PARENT_JOIN_CU"  # an earlier join.cu, to time its B4 beside this one
+
+
+def start_parent_build():
+    """Start compiling the join.cu named by $EVQL_PARENT_JOIN_CU beside
+    the package's own build; None when it is unset."""
+    path = os.environ.get(PARENT_JOIN_CU)
+    if not path:
+        return None
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    out = os.path.join(_build.BUILD_DIR, "parent_join.so")
+    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", out, path]
+    return out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                 text=True)
+
+
+def parent_dim_join(build):
+    """The earlier B4 as a function of dim_join_gid's arguments. Its
+    evql_dim_join_gid must take what the package's does: the argument
+    types are the ones kernels/join.py gives its own."""
+    if build is None:
+        return None
+    out, proc = build
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"the earlier join.cu did not build:\n{log}")
+    fn = ctypes.CDLL(out).evql_dim_join_gid
+    own = kj._lib().evql_dim_join_gid
+    fn.argtypes, fn.restype = own.argtypes, own.restype
+
+    def call(fact_keys, dim_keys, dim_bucket, n=None):
+        n = fact_keys.shape[0] if n is None else n
+        got = torch.empty(n, dtype=torch.int32, device=fact_keys.device)
+        rc = fn(fact_keys.data_ptr(), kj._KEY_DT[fact_keys.dtype], n, dim_keys.data_ptr(),
+                dim_bucket.data_ptr(), dim_keys.shape[0], got.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"the earlier dim_join_gid: CUDA error {rc}")
+        return got
+
+    return call
+
+
+def dim_join_extras(kw, iters, parent):
+    """Beside a timed dim_join_gid call: its kernel's device time at one
+    row (one block: the table build and the launch, against a one-row
+    table for the launch alone), and the earlier B4 on the same
+    arguments, equal to this one (tolerance 0) and timed."""
+    one = dict(kw, n=1)
+    out = dict(
+        one_row_device_ms=kernel_device_ms(lambda: kj.dim_join_gid(**one)),
+        one_row_one_dim_device_ms=kernel_device_ms(lambda: kj.dim_join_gid(
+            kw["fact_keys"], kw["dim_keys"][:1], kw["dim_bucket"][:1], 1)))
+    if parent is None:
+        out["parent_ms"] = None
+        out["parent"] = f"not measured: ${PARENT_JOIN_CU} is unset"
+        return out
+    check(torch.equal(parent(**kw), kj.dim_join_gid(**kw)),
+          "the earlier dim_join_gid and this one disagree")
+    out["parent_ms"] = cuda_ms(lambda: parent(**kw), iters)
+    out["parent"] = os.environ[PARENT_JOIN_CU]
+    return out
+
+
+def dim_shapes_off_the_main_path(device, n, iters, parent):
+    """dim_join_gid at two shapes no query of phase 4 has, with u64 fact
+    keys: D = 8192 (the tier's edge, a 192 KB table), every fact row a
+    hit; D = 1024 with half the rows missing, as the query's u32 stream
+    has it. Beside each: the earlier B4, and at D = 8192 probe_join_gid
+    (the big-table tier) on the same inputs, and the device time of its
+    table build in global memory (what building B4's table once, for all
+    blocks, would cost at the least)."""
+    gen = torch.Generator(device=device).manual_seed(13)  # made on the card
+    out = {}
+    for D, span in ((kj.MAX_COMPARE_DIMS, kj.MAX_COMPARE_DIMS), (N_DIMS, 2 * N_DIMS)):
+        kw = dict(
+            fact_keys=torch.randint(span, (n,), generator=gen, device=device)
+            * BIG_DIM_MULT + 3,
+            dim_keys=torch.randperm(D, generator=gen, device=device) * BIG_DIM_MULT + 3,
+            dim_bucket=torch.randint(N_REGIONS, (D,), generator=gen, device=device,
+                                     dtype=torch.int32),
+            n=n)
+        label = f"D={D} u64 keys, {'every row a hit' if span == D else 'half the rows miss'}"
+        res = check_and_time_join("dim_join_gid", label, kw, iters)
+        res.update(dim_join_extras(kw, iters, parent))
+        if D == kj.MAX_COMPARE_DIMS:
+            check(torch.equal(kj.probe_join_gid(**kw), kj.dim_join_gid(**kw)),
+                  "the two tiers disagree at D = 8192")
+            res["probe_join_gid_ms"] = cuda_ms(lambda: kj.probe_join_gid(**kw), iters)
+            res["global_table_build_device_ms"] = kernel_device_ms(
+                lambda: kj.build_join_table(kw["dim_keys"], kw["dim_bucket"]))
+        out[label + " (not a query)"] = res
+    return out
+
+
 def _topk_context(device, calls):
     """Whole-operation yardsticks for the headline top-k, as context and
     not as a port: the port's topk_permutation (host clock, it waits on
@@ -1167,7 +1356,34 @@ def _topk_context(device, calls):
     }
 
 
-def phase_times(device, calls):
+def _as_int64(t, unsigned):
+    wide = t.to(torch.int64)
+    return wide & ((1 << (8 * t.element_size())) - 1) if unsigned else wide
+
+
+def b1_library_ms(kw):
+    """One library call beside a recorded groupby_agg call: index_add_ of
+    the value stream as int64 at the buckets, or torch.bincount of the
+    buckets where the call sums nothing. Neither filters. The buckets
+    (key - base) are made beforehand, those outside [0, K), which the
+    kernel drops, shifted into one spare slot."""
+    n, K = kw["n"], kw["num_buckets"]
+    key = _as_int64(kw["gid"][:n], kw.get("gid_unsigned", False)) - kw.get("gid_base", 0)
+    idx = torch.where((key >= 0) & (key < K), key + 1, 0)
+    del key
+    if kw.get("values") is None:
+        return dict(library_ms=cuda_ms(lambda: torch.bincount(idx, minlength=K + 1), 5,
+                                       warmup=1),
+                    library="torch.bincount (int64 buckets shifted by one beforehand, no"
+                            " filter)")
+    vals = _as_int64(kw["values"][:n], kw.get("values_unsigned", False))
+    lib = torch.zeros(K + 1, dtype=torch.int64, device=idx.device)
+    return dict(library_ms=cuda_ms(lambda: lib.index_add_(0, idx, vals), 5, warmup=1),
+                library="torch.Tensor.index_add_ (int64, sums only, no filter; buckets"
+                        " shifted by one beforehand)")
+
+
+def phase_times(device, calls, parent=None):
     """Every call the main paths made (as recorded in phase 4: the same
     tensors, sizes and options) goes through its wrapper and its plain
     version once more; the results must be equal, and only then are
@@ -1206,6 +1422,15 @@ def phase_times(device, calls):
     hot = dict(kw, gid=torch.zeros_like(kw["gid"]), num_buckets=1)
     out["groupby_agg"]["other_shapes"]["one_hot_key (not a query)"] = (
         check_and_time("groupby_agg", "one hot key", hot, 5))
+
+    # the library yardsticks of B1's other shapes, on the very recorded
+    # arguments: index_add_ on int64 (sums only, no filter, no count), and
+    # for the count-only query torch.bincount
+    for query, res in out["groupby_agg"]["other_shapes"].items():
+        if query in ("or_two_columns", "numeric_key_base", "mask_form", "k_100000",
+                     "count_only", "one_hot_key (not a query)"):
+            res.update(b1_library_ms(hot if query.startswith("one_hot") else
+                                     calls[query][0][1]))
 
     # the library yardstick (never called by the port): index_add_ on
     # int64, sums only, no filter, no count
@@ -1266,6 +1491,9 @@ def phase_times(device, calls):
           and 0 < kw2["num_buckets"] <= N_REGIONS,
           "the small-dim join did not reach the kernels as a u32 key stream"
           " against 1024 dims, then i32 buckets with the u16 value stream")
+    out["dim_join_gid"].update(dim_join_extras(kw1, 20, parent))
+    out["dim_join_gid"]["other_shapes"].update(
+        dim_shapes_off_the_main_path(device, kw1["n"], 20, parent))
     # B1 after a join: index_add_ on int64, the bucket shifted by one
     # beforehand so that -1 (no dimension row) lands in a spare slot
     n, K = kw2["n"], kw2["num_buckets"]
@@ -1325,14 +1553,17 @@ def main():
     ).stdout.strip().splitlines()[0]
     log(f"phase 1: torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
+    parent_build = start_parent_build()
     secs = _build.build_all(verbose=True)
     for name in _build.sources():
         _build.load(name)
-    log(f"phase 2: kernels built in {secs:.1f} s: {_build.sources()}")
+    parent = parent_dim_join(parent_build)
+    log(f"phase 2: kernels built in {secs:.1f} s: {_build.sources()}"
+        + (f"; the earlier join.cu from ${PARENT_JOIN_CU}" if parent else ""))
 
     phase_kernels(device, N_KERNEL_CASE_ROWS)
     run = phase_main_path(device, N_ROWS, N_PREFIX_ROWS, REPS)
-    times = phase_times(device, run["calls"])
+    times = phase_times(device, run["calls"], parent)
     context = _topk_context(device, run["calls"])
     kernels = []
     for name, t in times.items():
@@ -1358,8 +1589,12 @@ def main():
             "bytes": t["bytes"],
             "other_shapes": t["other_shapes"],
         })
-        if "build_ms" in t:  # probe_join_gid: its table-build kernels alone
-            kernels[-1]["build_ms"] = t["build_ms"]
+        # probe_join_gid: its table-build kernels alone; dim_join_gid: one
+        # row (its table build) and the earlier kernel
+        for key in ("build_ms", "one_row_device_ms", "one_row_one_dim_device_ms",
+                    "parent_ms", "parent"):
+            if key in t:
+                kernels[-1][key] = t[key]
     log(json.dumps({"e2e_ms": run["e2e"], "rows": N_ROWS,
                     "launches_per_query": run["per_query"],
                     "device_bytes_held": run["resident"],

@@ -12,7 +12,18 @@ The two TPU kernels and their ports (``csrc/join.cu``):
 * ``dim_join_gid`` replaces ``_join_kernel`` / ``pallas_dim_join_gid``:
   at most ``MAX_COMPARE_DIMS`` dimension rows, held as a hash table in
   each block's shared memory, built in the kernel from the unsorted
-  rows. It has no fingerprint precondition.
+  rows. It has no fingerprint precondition. Its launcher shapes the
+  table from D and the fact stream's width (``dim_table`` mirrors the
+  rule for the tests): a u16 / u32 stream gets a table of only the
+  dimension keys that fit its width, in 8-byte slots of a 32-bit key
+  and the bucket, at a load of 1/8; a u64 stream 12-byte slots at 1/4;
+  fewer slots, down to a load of 1/2, where the shared memory holds no
+  more. Each thread probes eight rows a turn, their keys read as
+  16-byte vectors, all first probes read before any is compared. It is
+  bound by n * (key width + 4) + 12 D bytes; on an H100 it reaches 0.82
+  of that bound at the join query's shape (u32 keys, D = 1024, 2^26
+  rows: 0.196 ms against 0.160) and 0.65 at D = 8192 with u64 keys,
+  where the table's load is 1/2 (``chip_smoke.py`` phase 5).
 * ``probe_join_gid`` replaces ``_window_join_kernel`` /
   ``_window_join_pallas`` (reached through ``merge_join_gid``): any
   number of dimension rows, in any order. ``build_join_table`` builds an
@@ -44,7 +55,7 @@ per wrapper.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -58,6 +69,13 @@ LAUNCHES = {"dim_join_gid": 0, "probe_join_gid": 0, "build_join_table": 0}
 # hash table of dim_join_gid (16384 slots at a load of one half); above
 # it probe_join_gid probes a hash table in global memory
 MAX_COMPARE_DIMS = 8192
+# dim_join_gid's table, as its launcher shapes it (csrc/join.cu:dim_slots):
+# slots a dimension row for 8-byte slots (u16 / u32 streams) and for
+# 12-byte slots (u64 streams), as measured on the H100, and the most bytes
+# a table may take: under the 227 KB of shared memory the kernel's one
+# block an SM may opt in to
+DIM_SLOTS_PER_ROW = {8: 8, 12: 4}  # bytes a slot -> slots a row
+DIM_TABLE_SHARED_BYTES = 224 * 1024
 
 _SIGN = -(1 << 63)  # int64 with only the top bit set
 _DT_U16, _DT_U32, _DT_U64 = 1, 2, 3
@@ -177,6 +195,36 @@ def table_slots(n_dims: int) -> int:
     return 1 << max(1, (2 * int(n_dims) - 1).bit_length())
 
 
+class DimTable(NamedTuple):
+    slots: int  # a power of two, at least twice the dimension rows
+    slot_bytes: int  # 8: a u32 key and the bucket; 12: a u64 key and the bucket
+    key_bits: int  # the table holds the dimension keys below 2^key_bits
+
+
+def dim_table(n_dims: int, key_bytes: int) -> DimTable:
+    """The shared-memory table ``dim_join_gid`` builds in every block for
+    ``n_dims`` dimension rows and a fact key stream of ``key_bytes`` a key
+    (2, 4 or 8). A narrow stream can only equal a dimension key that fits
+    its width, so its table holds only those, as 32-bit keys. The slots:
+    the power of two at or above ``DIM_SLOTS_PER_ROW`` a row, halved
+    while the table is above ``DIM_TABLE_SHARED_BYTES``, but never below
+    two a row (the kernel's searches end at an empty slot).
+
+    The kernel's launcher chooses the table itself (``dim_slots`` in
+    ``csrc/join.cu``, exported as ``evql_dim_table_slots``); this is its
+    mirror, for the tests."""
+    if not 1 <= n_dims <= MAX_COMPARE_DIMS:
+        raise ValueError(f"{n_dims} dimension rows: need 1 .. {MAX_COMPARE_DIMS}")
+    if key_bytes not in (2, 4, 8):
+        raise ValueError(f"fact keys of {key_bytes} bytes: need 2, 4 or 8")
+    slot_bytes = 12 if key_bytes == 8 else 8
+    least = table_slots(n_dims)
+    slots = max(least, 1 << (DIM_SLOTS_PER_ROW[slot_bytes] * int(n_dims) - 1).bit_length())
+    while slots > least and slots * slot_bytes > DIM_TABLE_SHARED_BYTES:
+        slots //= 2
+    return DimTable(slots, slot_bytes, 8 * key_bytes)
+
+
 _lib_ready = False
 
 
@@ -186,6 +234,8 @@ def _lib():
     if not _lib_ready:
         vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.evql_dim_join_gid.argtypes = [vp, ci, cll, vp, vp, ci, vp, vp]
+        lib.evql_dim_table_slots.argtypes = [ci, ci]
+        lib.evql_dim_table_slots.restype = cll
         lib.evql_build_join_table.argtypes = [vp, vp, ci, cll, vp, vp]
         lib.evql_probe_join_table.argtypes = [vp, ci, cll, vp, cll, vp, vp]
         for fn in (lib.evql_dim_join_gid, lib.evql_build_join_table,

@@ -110,6 +110,57 @@ def test_join_probes_equal_plain_versions_at_4m_rows(cuda_device, n_dims, width)
             tjoin.dim_join_gid(f, dk, db)
 
 
+@pytest.mark.parametrize("key_bytes", [2, 4, 8])
+def test_dim_table_mirrors_the_launchers_slot_rule(cuda_device, key_bytes):
+    """dim_join_gid's launcher shapes its own table; kernels/join.py's
+    dim_table (what the CPU tests pin) must be the same rule."""
+    from eventql_tpu_torch.kernels import join as tjoin
+
+    slots_of = tjoin._lib().evql_dim_table_slots
+    for n_dims in range(1, tjoin.MAX_COMPARE_DIMS + 1):
+        assert slots_of(n_dims, key_bytes) == tjoin.dim_table(n_dims, key_bytes).slots
+    assert slots_of(0, key_bytes) == slots_of(tjoin.MAX_COMPARE_DIMS + 1, key_bytes) == -1
+
+
+@pytest.mark.parametrize("n_dims", [1, 127, 1024, 8192])
+@pytest.mark.parametrize("width", [16, 32, 64])
+def test_dim_join_gid_vectors_and_tails_on_the_card(cuda_device, n_dims, width):
+    """dim_join_gid against its plain version for each stored width of
+    the fact stream, the stream starting 0-7 rows into its allocation
+    (on and off a 16-byte boundary), n around one tile of the kernel
+    (1024 threads x 8 rows), against dimension keys of the stream's
+    width with its all-ones key, a key beyond the width whose low bits
+    are a key's, and a duplicate key further down (the lowest row wins)."""
+    from eventql_tpu_torch.kernels import join as tjoin
+
+    rng = np.random.default_rng(n_dims * width)
+    top = (1 << width) - 1
+    if width == 64:
+        keys = rng.integers(0, 1 << 63, n_dims, dtype=np.uint64) * np.uint64(2) + np.uint64(1)
+    else:
+        keys = rng.choice(top, n_dims, replace=False).astype(np.uint64)
+    keys[0] = top
+    if width < 64 and n_dims > 2:
+        keys[1] = (np.uint64(rng.integers(1, 1 << 20)) << np.uint64(width)) | keys[2]
+    if n_dims > 3:
+        keys[-1] = keys[3]
+    bucket = rng.integers(0, 1 << 30, n_dims).astype(np.int32)
+    m = 3 * 8192 + 21
+    fact = np.where(rng.random(m) < 0.6, keys[rng.integers(0, n_dims, m)] & np.uint64(top),
+                    rng.integers(0, 1 << min(width, 63), m, dtype=np.uint64))
+    fact[::41] = top
+    signed = {16: np.int16, 32: np.int32, 64: np.int64}[width]
+    f = torch.from_numpy(fact.astype(f"uint{width}").view(signed)).to(cuda_device)
+    dk = torch.from_numpy(keys.view(np.int64)).to(cuda_device)
+    db = torch.from_numpy(bucket).to(cuda_device)
+    for offset in range(8):
+        for n in (1, 7, 8, 9, 4095, 4096, 4097, 8191, 8192, 8193, 16389, m - offset):
+            got = tjoin.dim_join_gid(f[offset:], dk, db, n)
+            assert torch.equal(got, tjoin.dim_join_gid_plain(f[offset:], dk, db, n)), (
+                offset, n)
+    assert int((got >= 0).sum()) > 0 and int((got < 0).sum()) > 0
+
+
 @pytest.mark.parametrize("n_dims", [10, 5000, 8193, 20_000])
 @pytest.mark.parametrize("skip", [0, 1, 3])
 def test_probe_join_gid_duplicate_keys_and_sliced_facts_on_the_card(

@@ -432,6 +432,131 @@ def test_table_slots_is_a_power_of_two_at_load_one_half(n_dims):
     assert slots <= 1 << 32  # what the kernel's 32-bit slot index spans
 
 
+@pytest.mark.parametrize("key_bytes", [2, 4, 8])
+@pytest.mark.parametrize("n_dims", [1, 2, 3, 127, 1000, 1024, 2048, 2049, 3584, 4096,
+                                    4097, 7000, 8192])
+def test_dim_table_is_a_power_of_two_within_its_load_and_memory(n_dims, key_bytes):
+    """dim_join_gid's shared-memory table: a power of two of slots, at a
+    load of at most one half (an empty slot ends every search), at the
+    measured load (1/8 for 8-byte slots, 1/4 for 12-byte ones) wherever
+    the shared memory allows, never beyond a block's 227 KB."""
+    t = tjoin.dim_table(n_dims, key_bytes)
+    assert t.slots & (t.slots - 1) == 0 and t.slots >= 2 * n_dims
+    assert t.slot_bytes == (12 if key_bytes == 8 else 8)
+    assert t.key_bits == 8 * key_bytes
+    assert t.slots * t.slot_bytes <= tjoin.DIM_TABLE_SHARED_BYTES < 227 * 1024
+    per_row = tjoin.DIM_SLOTS_PER_ROW[t.slot_bytes]
+    measured = 1 << (per_row * n_dims - 1).bit_length()
+    if measured * t.slot_bytes <= tjoin.DIM_TABLE_SHARED_BYTES:
+        assert t.slots == measured
+    else:
+        assert t.slots == tjoin.table_slots(n_dims) or (
+            t.slots * t.slot_bytes <= tjoin.DIM_TABLE_SHARED_BYTES
+            < 2 * t.slots * t.slot_bytes)
+
+
+@pytest.mark.parametrize("n_dims, key_bytes, slots", [
+    (1024, 4, 8192),  # the join query's: 64 KB, load 1/8
+    (1024, 2, 8192),
+    (1024, 8, 4096),  # 48 KB, load 1/4
+    (2048, 8, 8192),  # 96 KB
+    (4096, 8, 16384),  # 192 KB
+    (4096, 4, 16384),  # 256 KB at 1/8 would not fit a block: load 1/4
+    (8192, 2, 16384),  # load 1/2
+    (8192, 4, 16384),
+    (8192, 8, 16384),  # 192 KB, the largest table
+])
+def test_dim_table_slots_at_the_measured_shapes(n_dims, key_bytes, slots):
+    assert tjoin.dim_table(n_dims, key_bytes).slots == slots
+
+
+def test_dim_table_refuses_what_the_kernel_does_not_take():
+    for n_dims, key_bytes in ((0, 4), (tjoin.MAX_COMPARE_DIMS + 1, 4), (100, 3), (100, 1)):
+        with pytest.raises(ValueError):
+            tjoin.dim_table(n_dims, key_bytes)
+
+
+def _keys_past_the_word(rng, dtype=np.uint32, n_low=2000, n_high=1000):
+    """Dimension keys that fit ``dtype`` (with its all-ones key) and keys
+    beyond it: half of those carry the low bits of a narrow key of the
+    set, half low bits that are no key. Returns (dim keys u64, fact keys
+    as ``dtype``) with every key cut to the width among the facts, random
+    keys of the width and its all-ones key."""
+    bits = 8 * np.dtype(dtype).itemsize
+    top = np.uint64((1 << bits) - 1)
+    low = rng.choice(int(top), n_low + n_high, replace=False).astype(np.uint64)
+    low[0] = top
+    high_lo = np.concatenate([low[:n_high // 2], low[n_low:n_low + n_high - n_high // 2]])
+    high = (rng.integers(1, 1 << 32, n_high).astype(np.uint64) << np.uint64(bits)) | high_lo
+    dk = rng.permutation(np.concatenate([low[:n_low], high]))
+    fact = np.concatenate([dk[rng.integers(0, len(dk), 4000)] & top,
+                           rng.integers(0, 1 << bits, 1000).astype(np.uint64),
+                           np.full(50, top, np.uint64)])
+    return dk, rng.permutation(fact).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype", [np.uint16, np.uint32])
+def test_narrow_table_needs_only_the_keys_of_the_streams_width(dtype):
+    """A u16 / u32 stream can only equal a dimension key below 2^key_bits:
+    the table that holds only those gives every answer of the full set."""
+    rng = np.random.default_rng(np.dtype(dtype).itemsize)
+    dk, fact = _keys_past_the_word(rng, dtype)
+    db = rng.integers(0, 1 << 20, len(dk)).astype(np.int32)
+    bits = tjoin.dim_table(len(dk), np.dtype(dtype).itemsize).key_bits
+    held = dk < np.uint64(1 << bits)
+    assert held.any() and not held.all()
+    want = _lookup(fact, dk, db)
+    assert (want >= 0).any() and (want < 0).any()
+    np.testing.assert_array_equal(tjoin.dim_join_gid(_t(fact), _t(dk), _t(db)).numpy(), want)
+    np.testing.assert_array_equal(
+        tjoin.dim_join_gid(_t(fact), _t(dk[held]), _t(db[held])).numpy(), want)
+
+
+def _narrow_case(name):
+    """(dim_keys u64[D], dim_bucket i32[D], fact_keys stored narrow)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name == "u32 stream, dimension keys of 2^32 and more":
+        dk, fact = _keys_past_the_word(rng)
+    elif name == "the 32-bit all-ones key":
+        dk = rng.permutation(np.concatenate([
+            rng.choice(1 << 31, 600, replace=False).astype(np.uint64),
+            np.array([0xFFFFFFFF, 0xFFFFFFFE, 0x1FFFFFFFF], np.uint64)]))
+        fact = np.concatenate([dk[rng.integers(0, len(dk), 3000)] & np.uint64(0xFFFFFFFF),
+                               np.full(300, 0xFFFFFFFF, np.uint64)])
+        fact = rng.permutation(np.concatenate([fact, rng.integers(0, 1 << 32, 700).astype(
+            np.uint64)])).astype(np.uint32)
+    elif name == "8192 dims, u32 stream":
+        dk = rng.permutation(np.arange(8192, dtype=np.uint64) * 104729 + 11)
+        fact = (rng.integers(0, 8192 + 4096, 4096).astype(np.uint64) * 104729 + 11).astype(
+            np.uint32)
+    elif name == "8192 dims, u16 stream":
+        dk = rng.choice(1 << 16, 8192, replace=False).astype(np.uint64)
+        fact = rng.integers(0, 1 << 16, 4096).astype(np.uint16)
+    else:
+        raise KeyError(name)
+    return dk, rng.integers(0, 70_000, len(dk)).astype(np.int32), fact
+
+
+@pytest.mark.parametrize("name", ["u32 stream, dimension keys of 2^32 and more",
+                                  "the 32-bit all-ones key", "8192 dims, u32 stream",
+                                  "8192 dims, u16 stream"])
+def test_dim_join_gid_plain_equals_pallas_on_narrow_streams(name):
+    """dim_join_gid_plain (what the kernel is held against on the card)
+    against the JAX kernel in interpret mode on the narrow streams the
+    narrow table serves."""
+    dk, db, fact = _narrow_case(name)
+    assert jjoin.dim_fingerprints_unique(dk)
+    db = db % 65536
+    want = np.asarray(jjoin.pallas_dim_join_gid(
+        jnp.asarray(fact), jnp.asarray(dk), jnp.asarray(db)))
+    got = tjoin.dim_join_gid_plain(_t(fact), _t(dk), _t(db))
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, _lookup(fact, dk, db))
+    assert (want >= 0).any() and (want < 0).any()
+    if "all-ones" in name:
+        assert (want[fact == 0xFFFFFFFF] == db[dk == 0xFFFFFFFF][0]).all()
+
+
 def test_table_slots_needs_a_dimension_row():
     with pytest.raises(ValueError):
         tjoin.table_slots(0)
