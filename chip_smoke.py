@@ -7,19 +7,27 @@ Phases (any mismatch or exception ends the run with a non-zero code):
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles the CUDA kernels from eventql_tpu_torch/kernels/csrc;
   3. kernels: every kernel wrapper against its plain PyTorch version on
-     the card, exact equality (integer sums and row indices: tolerance 0);
+     the card, exact equality (integer sums and row indices: tolerance 0;
+     the hash aggregate's groups in first-row order, its floats multiples
+     of 1/64, so that every sum is exact in any order);
   4. main paths: SQL text -> Runtime(device="cuda") -> ResultList on a
      partition-sized table (2^26 rows, ~2.8 GB on the device): first the
-     GROUP BY sum/count queries, then the ORDER BY [LIMIT] queries, then
-     the fact-dim JOIN + GROUP BY queries (dimension tables of 1024 and
-     2^18 rows), each path with the launch counts set to 0 just before
-     it and read just after. Every query's rows equal an independent
-     numpy answer and, on a 2^20-row prefix, the port's own host engine;
-     route and launch counters rose as they must;
+     GROUP BY sum/count queries, then the general GROUP BY queries G1-G5
+     (min / max / mean, a key beyond K_CAP, two keys, count_distinct,
+     float sums: the hash aggregate, with its peak device memory), then
+     the ORDER BY [LIMIT] queries, then the fact-dim JOIN + GROUP BY
+     queries (dimension tables of 1024 and 2^18 rows; J1 with min / max
+     through the join route's general branch), each path with the launch
+     counts set to 0 just before it and read just after. Every query's
+     rows equal an independent numpy answer and, on a 2^20-row prefix,
+     the port's own host engine; route and launch counters rose as they
+     must;
   5. the main paths' shapes: every kernel call the queries of phase 4
      made is repeated on the same tensors through the wrapper and the
      plain version, which must be equal (tolerance 0); then CUDA-event
-     times of both beside the bound and a library call, and the warm
+     times of both beside the bound and a library call (for the hash
+     aggregate the chain torch.unique + scatter_reduce_; and its G1 call
+     with every row on one key), and the warm
      end-to-end time per query; the big-table join probe also against
      dimension tables of 16384 and 2^22 rows, and its table build alone;
      the small-table probe also at D = 8192 and D = 1024 with u64 keys
@@ -59,6 +67,7 @@ from eventql_tpu_torch.exec.runtime import (
 from eventql_tpu_torch.kernels import _build
 from eventql_tpu_torch.kernels import extract as ex
 from eventql_tpu_torch.kernels import groupby_agg as ga
+from eventql_tpu_torch.kernels import hash_groupby as hg
 from eventql_tpu_torch.kernels import join as kj
 from eventql_tpu_torch.kernels import sort as ksort
 
@@ -445,6 +454,89 @@ def join_cases(n, device, rng):
         yield from both(f"fact keys narrowed to u{bits}", keys, bucket, f)
 
 
+def hash_cases(n, device, rng):
+    """Yield (label, kwargs of hash_groupby and its plain version): 1, 2
+    and 3 keys of every width the kernel reads, NULL keys beside a real
+    key 0, every row a group of its own, one hot key, u64 maxima of 2^63
+    and more, negative i64 minima, NaN and -0.0 under min / max / mean,
+    count_distinct. Floats are multiples of 1/64: every sum is exact in
+    any order."""
+    def t(a):
+        return dev_tensor(a, device)
+
+    mask = t(rng.random(n) < 0.7)
+    u64 = rng.integers(0, 1 << 40, n).astype(np.uint64)
+    u64[rng.integers(0, n, n // 100)] |= np.uint64(1 << 63)
+    i64 = rng.integers(-(1 << 50), 1 << 50, n).astype(np.int64)
+    f = rng.integers(-(1 << 20), 1 << 20, n) / 64.0
+    f[rng.integers(0, n, 40)] = np.nan
+    f[rng.integers(0, n, 1000)] = -0.0
+    u16 = t(rng.integers(0, 65536, n).astype(np.uint16))
+    small = t(rng.integers(0, 50, n).astype(np.int32))
+    every = dict(
+        values=[t(u64)] * 3 + [t(i64)] * 3 + [t(f)] * 4 + [u16] * 3,
+        kinds=["sum", "min", "max"] * 2 + ["sum", "min", "max", "mean"] + ["sum", "min", "max"],
+        values_unsigned=[True] * 3 + [False] * 3 + [False] * 4 + [True] * 3,
+        distinct=[small, t(u64 % np.uint64(997))])
+    k5000 = rng.integers(0, 5000, n)
+    yield "1 key (i64), every kind, masked", dict(
+        keys=[t(k5000.astype(np.int64))], n=n, mask=mask, **every)
+    yield "2 keys (i16, i32)", dict(
+        keys=[t((k5000 % 300).astype(np.int16)), t((k5000 // 300).astype(np.int32))],
+        n=n, mask=mask, **every)
+    fk = (k5000 % 5).astype(np.float64)
+    fk[(k5000 % 5 == 0) & (k5000 % 3 == 0)] = -0.0  # -0.0 and +0.0: two groups
+    yield "3 keys (i16, u8, f64)", dict(
+        keys=[t((k5000 % 40).astype(np.int16)), t(k5000 % 2 == 0), t(fk)],
+        n=n - 17, mask=mask, **every)
+    valid = rng.random(n) < 0.9
+    real0 = np.where(valid, k5000 % 64, 0)  # NULL keys fold to 0 beside real 0s
+    yield "NULL keys beside a real key 0", dict(
+        keys=[t(real0.astype(np.int32)), t((~valid).astype(np.int64))], n=n, mask=None,
+        **every)
+    yield "every row its own group (about 2^20 groups)", dict(
+        keys=[t(rng.permutation(n).astype(np.int64))], n=n, mask=None, **every)
+    yield "one hot key", dict(
+        keys=[t(np.zeros(n, np.int64))], n=n, mask=mask, **every)
+    more = hg.MAX_VALUES + 4  # more value streams than one aggregate launch takes
+    yield f"{more} value streams", dict(
+        keys=[t((k5000 % 500).astype(np.int32))], n=n, mask=mask,
+        values=[t(i64 + j) for j in range(more)], kinds=["sum", "min", "max", "sum"] * (more // 4))
+
+
+def same_grouped(got, want):
+    """(equal?, max |difference|) of two Grouped, compared in the order
+    of their first rows: integers exactly, floats by their bits (the sign
+    of zero too) except that a NaN equals a NaN."""
+    g, w = hg.in_first_row_order(got), hg.in_first_row_order(want)
+    if g.first_index.shape != w.first_index.shape:
+        return False, float("inf")
+    ok = torch.equal(g.first_index, w.first_index) and torch.equal(g.counts, w.counts)
+    err = 0.0
+    for a, b in zip((*g.aggregates, *g.distinct), (*w.aggregates, *w.distinct)):
+        if a.dtype != b.dtype:
+            return False, float("inf")
+        if a.dtype == torch.float64:
+            na, nb = torch.isnan(a), torch.isnan(b)
+            ok = ok and torch.equal(na, nb) and torch.equal(
+                a[~na].view(torch.int64), b[~na].view(torch.int64))
+            if int((~na).sum()) and torch.equal(na, nb):
+                err = max(err, float((a[~na] - b[~na]).abs().max()))
+        else:
+            ok = ok and torch.equal(a, b)
+            if a.numel():
+                err = max(err, float((a - b).abs().max()))
+    return ok, err
+
+
+def check_hash_case(label, got, want):
+    ok, err = same_grouped(got, want)
+    check(ok, f"hash_groupby [{label}]: kernel and plain version disagree"
+          f" (max |diff| {err})")
+    check(len(got.first_index) > 0, f"hash_groupby [{label}]: no group")
+    return err
+
+
 class _Kernel:
     """One wrapper of the port: where it lives, its plain version, and
     the module that counts its launches."""
@@ -465,6 +557,7 @@ _KERNELS = {
     "extract_ge": _Kernel(ex, "extract_ge"),
     "dim_join_gid": _Kernel(kj, "dim_join_gid"),
     "probe_join_gid": _Kernel(kj, "probe_join_gid"),
+    "hash_groupby": _Kernel(hg, "hash_groupby"),
 }
 
 
@@ -533,6 +626,21 @@ def phase_kernels(device, n):
         hits = int((got >= 0).sum())
         check(0 < hits and (hits < rows or rows == 1),
               f"{name} [{label}]: {hits} hits in {rows} rows")
+        cases += 1
+    for label, kw in hash_cases(n, device, rng):
+        got = hg.hash_groupby(**kw)
+        want = hg.hash_groupby_plain(**kw)
+        torch.cuda.synchronize()
+        check_hash_case(label, got, want)
+        if label.startswith("1 key"):
+            a = got.aggregates  # u64 sum/min/max, i64 sum/min/max, f64 sum/min/max/mean
+            check(bool((a[2] < 0).any()), "no group's u64 max is 2^63 or more")
+            check(bool((a[4] < 0).any()), "no group's i64 min is negative")
+            check(all(bool(torch.isnan(a[j]).any()) for j in (7, 8, 9)),
+                  "no NaN group under min, max and mean")
+            check(bool((got.distinct[0] > 1).all()), "count_distinct: nothing repeated")
+        if label == "one hot key":
+            check(got.counts.tolist() == [int(kw["mask"][:n].sum())], "hot key: one group")
         cases += 1
     # dim_join_gid's launcher shapes its table; kernels/join.py mirrors the rule
     slots_of = kj._lib().evql_dim_table_slots
@@ -785,11 +893,142 @@ def join_queries(c, dims, n):
          "select d2.region, count(1), sum(t.v) from t join d2 on t.dk2 = d2.k"
          " group by d2.region;",
          {"probe_join_gid": 1, agg: 1}, rows(r2, everything, v)),
-        ("join_min_max_host_route",
-         "select d1.region, min(t.v), max(t.w) from t join d1 on t.dk = d1.k"
-         " group by d1.region;",
-         {}, None),
+        (J1[0], J1[1], {"dim_join_gid": 1, "hash_groupby": 1},
+         join_min_max_rows(r1, v, w)),
     ]
+
+
+# the general GROUP BY path: every plan the bounded route declines
+GENERAL_SQL = {
+    "G1_min_max_mean": "select k, min(v), max(w), mean(v) from t where v < 800 group by k;",
+    "G2_key_beyond_k_cap": "select w, count(1), sum(v) from t group by w;",
+    "G3_two_keys": "select k, cat, count(1), max(ts) from t group by k, cat;",
+    "G4_count_distinct": "select k, count_distinct(v) from t group by k;",
+    "G5_float_sums": "select cat, sum(v / 64), mean(w) from t group by cat;",
+}
+# the join route's general branch (min / max after the small-table probe)
+J1 = ("join_min_max",
+      "select d1.region, min(t.v), max(t.w) from t join d1 on t.dk = d1.k"
+      " group by d1.region;")
+
+
+def _first_rows_of(group, G):
+    """Per group id in [0, G): its first row (n where it has none)."""
+    n = len(group)
+    first = np.full(G, n, np.int64)
+    np.minimum.at(first, group, np.arange(n, dtype=np.int64))
+    return first
+
+
+def general_queries(c, dictionary, n):
+    """(name, sql, expected rows in order): independent numpy answers,
+    groups in the order of their first rows, floats as the port prints
+    them ("%f"; every sum here is exact in float64)."""
+    names = np.array([d.decode() for d in dictionary], dtype=object)
+    k, v, w, ts = c["k"][:n], c["v"][:n], c["w"][:n], c["ts"][:n]
+    cat = (c["cat"][:n] - CAT_LO).astype(np.int64)
+
+    def ordered(first, *cols):
+        occ = np.nonzero(first < n)[0]
+        occ = occ[np.argsort(first[occ], kind="stable")]
+        return [list(r) for r in zip(*(col(occ) for col in cols))]
+
+    def num(a):
+        return lambda occ: a[occ].astype(str).tolist()
+
+    def flt(a):
+        return lambda occ: ["%f" % x for x in a[occ]]
+
+    out = []
+    keep = v < 800
+    kk = np.where(keep, k, N_KEYS)  # dropped rows in a spare group
+    mn = np.full(N_KEYS + 1, 1 << 20, np.uint64)
+    mx = np.zeros(N_KEYS + 1, np.uint64)
+    np.minimum.at(mn, kk, v)
+    np.maximum.at(mx, kk, w)
+    cnt = np.bincount(kk, minlength=N_KEYS + 1)
+    sv = np.bincount(kk, weights=v.astype(np.float64), minlength=N_KEYS + 1)
+    first = _first_rows_of(kk, N_KEYS + 1)
+    first[N_KEYS] = n
+    with np.errstate(invalid="ignore", divide="ignore"):
+        mean = sv / cnt
+    out.append(("G1_min_max_mean", ordered(
+        first, lambda o: names[o].tolist(), num(mn), num(mx), flt(mean))))
+    W = 1 << 20
+    wi = w.astype(np.int64)
+    out.append(("G2_key_beyond_k_cap", ordered(
+        _first_rows_of(wi, W), lambda o: o.astype(str).tolist(),
+        num(np.bincount(wi, minlength=W)),
+        num(np.bincount(wi, weights=v.astype(np.float64), minlength=W).astype(np.uint64)))))
+    pair = k.astype(np.int64) * (CAT_HI - CAT_LO) + cat
+    P = N_KEYS * (CAT_HI - CAT_LO)
+    tmax = np.zeros(P, np.uint64)
+    np.maximum.at(tmax, pair, ts)
+    out.append(("G3_two_keys", ordered(
+        _first_rows_of(pair, P), lambda o: names[o // (CAT_HI - CAT_LO)].tolist(),
+        lambda o: (o % (CAT_HI - CAT_LO) + CAT_LO).astype(str).tolist(),
+        num(np.bincount(pair, minlength=P)), num(tmax))))
+    seen = np.zeros((N_KEYS, 1000), bool)
+    seen[k, v] = True
+    out.append(("G4_count_distinct", ordered(
+        _first_rows_of(k, N_KEYS), lambda o: names[o].tolist(), num(seen.sum(1)))))
+    C = CAT_HI - CAT_LO
+    ccount = np.bincount(cat, minlength=C)
+    sv = np.bincount(cat, weights=v.astype(np.float64), minlength=C)
+    sw = np.bincount(cat, weights=w.astype(np.float64), minlength=C)
+    with np.errstate(invalid="ignore", divide="ignore"):
+        out.append(("G5_float_sums", ordered(
+            _first_rows_of(cat, C), lambda o: (o + CAT_LO).astype(str).tolist(),
+            flt(sv / 64), flt(sw / ccount))))
+    return [(name, GENERAL_SQL[name], rows) for name, rows in out]
+
+
+def join_min_max_rows(region, v, w):
+    """J1's independent answer: per region of a row's dimension row
+    (-1: none), min(v) and max(w), regions in the order of their first
+    rows."""
+    n = len(region)
+    keep = region >= 0
+    r = np.where(keep, region, N_REGIONS)
+    mn = np.full(N_REGIONS + 1, 1 << 20, np.uint64)
+    mx = np.zeros(N_REGIONS + 1, np.uint64)
+    np.minimum.at(mn, r, v)
+    np.maximum.at(mx, r, w)
+    first = _first_rows_of(r, N_REGIONS + 1)
+    first[N_REGIONS] = n
+    occ = np.nonzero(first < n)[0]
+    occ = occ[np.argsort(first[occ], kind="stable")]
+    return [["r%04d" % o, str(int(mn[o])), str(int(mx[o]))] for o in occ]
+
+
+def general_path(rt, full, qs, reps):
+    """The general GROUP BY path at full size: rows and their order must
+    equal the numpy answer, the route counter rise once a run, and each
+    run launch the hash aggregate once. Returns (e2e, launches per query,
+    the last run's kernel calls per query)."""
+    e2e, launches_by_query, calls = {}, {}, {}
+    for name, sql, expected in qs:
+        before = launch_counts()
+        route0 = device_exec.GENERAL_GROUPBY_COUNT
+        reads0 = ksort.READBACKS
+        res, times, n_calls, recorded = _timed_runs(rt, full, sql, reps)
+        got = res.rows
+        check(len(got) == len(expected),
+              f"{name}: {len(got)} groups, expected {len(expected)}")
+        check(got == expected, f"{name}: rows or their order differ from the numpy answer")
+        check(device_exec.GENERAL_GROUPBY_COUNT - route0 == reps,
+              f"{name}: general route counter")
+        after = launch_counts()
+        delta = {k: after[k] - before[k] for k in after}
+        want = {k: reps * (k == "hash_groupby") for k in after}
+        check(delta == want, f"{name}: launches {delta}, expected {want}")
+        check(n_calls == reps and [c[0] for c in recorded] == ["hash_groupby"],
+              f"{name}: recorded calls")
+        calls[name] = recorded
+        launches_by_query[name] = {"hash_groupby": 1}
+        e2e[name] = _e2e(times, groups=len(got),
+                         readbacks=(ksort.READBACKS - reads0) // reps)
+    return e2e, launches_by_query, calls
 
 
 def run_query(rt, provider, sql):
@@ -956,6 +1195,7 @@ def phase_main_path(device, n, n_prefix, reps):
     gqs = queries(cols, dictionary)
     oqs = order_queries(cols, dictionary, n)
     jqs = join_queries(cols, dims, n)
+    hqs = general_queries(cols, dictionary, n)
     log(f"phase 4: table of {n} rows and expected answers made in"
         f" {time.perf_counter() - t0:.1f} s")
 
@@ -969,6 +1209,17 @@ def phase_main_path(device, n, n_prefix, reps):
         check(g_launches[name] > 0, f"{name}: not launched on the GROUP BY path")
     log(f"phase 4: {len(gqs)} GROUP BY queries x {reps} equal to numpy at {n}"
         f" rows; launches {g_launches}")
+
+    zero_launch_counts()
+    torch.cuda.reset_peak_memory_stats(device)
+    h_e2e, h_per_query, h_calls = general_path(rt, full, hqs, reps)
+    h_launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated(device)
+    check(h_launches["hash_groupby"] > 0, "hash_groupby: not launched on the general path")
+    total = torch.cuda.get_device_properties(device).total_memory
+    check(peak < total // 2, f"general path: peak {peak} bytes of {total}")
+    log(f"phase 4: {len(hqs)} general GROUP BY queries x {reps} equal to numpy at {n}"
+        f" rows, in order; launches {h_launches}")
 
     zero_launch_counts()
     o_e2e, o_per_query, o_calls = order_path(rt, full, oqs, reps)
@@ -998,7 +1249,8 @@ def phase_main_path(device, n, n_prefix, reps):
         for t in c._device_cache[str(device)]
     )
     check(resident > n * 34, "the table is not resident on the device")
-    log(f"phase 4: device memory held {resident} bytes")
+    log(f"phase 4: device memory held {resident} bytes; peak allocated on the general"
+        f" GROUP BY path {peak} bytes of {total}")
 
     # the same queries on a prefix: device routes against the host engine
     for name, sql, *_rest in gqs:
@@ -1011,6 +1263,14 @@ def phase_main_path(device, n, n_prefix, reps):
         b = run_query(host_rt, prefix, sql).rows
         check(a == b and len(a) > 0,
               f"{name}: device route and host engine differ on the prefix")
+    for name, sql, _rows in hqs:
+        route0 = device_exec.GENERAL_GROUPBY_COUNT
+        a = run_query(rt, prefix, sql).rows
+        b = run_query(host_rt, prefix, sql).rows
+        check(a == b and len(a) > 0,
+              f"{name}: device route and host engine differ on the prefix")
+        check(device_exec.GENERAL_GROUPBY_COUNT - route0 == 1,
+              f"{name}: general route counter on the prefix")
     for name, sql, per_run, expected in jqs:
         route0 = device_exec.JOIN_GROUPBY_COUNT
         a = run_query(rt, prefix, sql).rows
@@ -1019,19 +1279,20 @@ def phase_main_path(device, n, n_prefix, reps):
               f"{name}: device route and host engine differ on the prefix")
         check(device_exec.JOIN_GROUPBY_COUNT - route0 == (expected is not None),
               f"{name}: join route counter on the prefix")
-    log(f"phase 4: {len(gqs) + len(oqs) + len(jqs)} queries equal to the host"
-        f" engine at {n_prefix} rows")
+    log(f"phase 4: {len(gqs) + len(hqs) + len(oqs) + len(jqs)} queries equal to the"
+        f" host engine at {n_prefix} rows")
     # the counts as read after each path's full-size queries: the prefix
     # runs above and phase 5 launch too, and are not the main path
     return dict(
-        launches={k: g_launches[k] + o_launches[k] + j_launches[k]
+        launches={k: g_launches[k] + h_launches[k] + o_launches[k] + j_launches[k]
                   for k in g_launches},
-        launches_by_path={"group_by": g_launches, "order_by": o_launches,
-                          "join": j_launches},
-        per_query={**g_per_query, **o_per_query, **j_per_query},
-        e2e={**g_e2e, **o_e2e, **j_e2e},
-        calls={**{q: [c] for q, c in g_calls.items()}, **o_calls, **j_calls},
+        launches_by_path={"group_by": g_launches, "general_group_by": h_launches,
+                          "order_by": o_launches, "join": j_launches},
+        per_query={**g_per_query, **h_per_query, **o_per_query, **j_per_query},
+        e2e={**g_e2e, **h_e2e, **o_e2e, **j_e2e},
+        calls={**{q: [c] for q, c in g_calls.items()}, **h_calls, **o_calls, **j_calls},
         resident=resident,
+        peak_general=peak,
     )
 
 
@@ -1383,6 +1644,95 @@ def b1_library_ms(kw):
                         " shifted by one beforehand)")
 
 
+def _hash_streams(kw):
+    """(role, tensor) of every stream a recorded hash_groupby call reads,
+    each tensor once."""
+    named = [("key", t) for t in kw["keys"]] + [("value", t) for t in kw.get("values", ())]
+    named += [("distinct", t) for t in kw.get("distinct", ())] + [("mask", kw.get("mask"))]
+    seen, out = set(), []
+    for role, t in named:
+        if t is not None and t.data_ptr() not in seen:
+            seen.add(t.data_ptr())
+            out.append((role, t))
+    return out
+
+
+def hash_bound_of(kw, groups):
+    """Least time for the call: every key, value and mask stream read
+    once at its stored width and the results (count, first row, one
+    word per aggregate) written once, over the memory rate; against a
+    hash, a compare and an atomic a key word and a row, and one atomic
+    per aggregate, over the ALU rate."""
+    n = kw["n"]
+    streams = _hash_streams(kw)
+    outs = 2 + len(kw.get("values", ())) + len(kw.get("distinct", ()))
+    nbytes = n * sum(t.element_size() for _r, t in streams) + groups * outs * 8
+    nops = n * (3 * len(kw["keys"]) + outs)
+    shape = f"n={n} groups={groups} " + " ".join(
+        f"{r}={str(t.dtype).split('.')[-1]}" for r, t in streams)
+    return _bound(nbytes, nops, shape)
+
+
+_SCATTER = {"sum": "sum", "min": "amin", "max": "amax", "mean": "mean"}
+
+
+def hash_library_ms(kw):
+    """The library chain beside a recorded call: torch.unique
+    (return_inverse) of the masked-in key tuples, one scatter_reduce_ per
+    aggregate on the values as stored, and for count_distinct a unique of
+    (group, value) pairs and a bincount. The mask is applied and the keys
+    are widened and stacked beforehand. Not the kernel's semantics at
+    every corner (a u64 min in signed order), a yardstick of the time."""
+    n = kw["n"]
+    rows = torch.arange(n, device=kw["keys"][0].device) if kw.get("mask") is None else (
+        torch.nonzero(kw["mask"][:n]).flatten())
+    keys = [k[:n][rows].to(torch.int64) for k in kw["keys"]]
+    key = keys[0] if len(keys) == 1 else torch.stack(keys, 1)
+    vals = [v[:n][rows] for v in kw.get("values", ())]
+    vals = [v if v.dtype == torch.float64 else v.to(torch.int64) for v in vals]
+    dist = [d[:n][rows].to(torch.int64) for d in kw.get("distinct", ())]
+    kinds = kw.get("kinds", ())
+
+    def chain():
+        if key.dim() == 1:
+            uniq, inv = torch.unique(key, return_inverse=True)
+        else:
+            uniq, inv = torch.unique(key, dim=0, return_inverse=True)
+        G = uniq.shape[0]
+        for v, kind in zip(vals, kinds):
+            torch.zeros(G, dtype=v.dtype, device=v.device).scatter_reduce_(
+                0, inv, v, _SCATTER[kind], include_self=False)
+        for d in dist:
+            pairs = torch.unique(torch.stack([inv, d], 1), dim=0)
+            torch.bincount(pairs[:, 0], minlength=G)
+
+    return dict(library_ms=cuda_ms(chain, 3, warmup=1),
+                library="torch.unique(return_inverse) + one scatter_reduce_ per aggregate"
+                        " (+ unique of (group, value) pairs and bincount per count_distinct);"
+                        " mask applied, keys widened and stacked beforehand")
+
+
+def check_and_time_hash(label, kw, iters):
+    """hash_groupby on a recorded call: equal to its plain version (in
+    first-row order; integers exactly, order-proof floats by their bits),
+    then the kernel, the plain version and the library chain timed."""
+    got, want = hg.hash_groupby(**kw), hg.hash_groupby_plain(**kw)
+    torch.cuda.synchronize()
+    err = check_hash_case(label, got, want)
+    groups = int(got.first_index.numel())
+    del got, want
+    out = dict(max_abs_err=err, groups=groups,
+               ms=cuda_ms(lambda: hg.hash_groupby(**kw), iters),
+               plain_ms=cuda_ms(lambda: hg.hash_groupby_plain(**kw), 2, warmup=1),
+               # the group ids, count and first row alone: the rest of ms is
+               # the value streams' atomics and count_distinct's table
+               ids_count_first_ms=cuda_ms(
+                   lambda: hg.hash_groupby(kw["keys"], kw["n"], kw.get("mask")), iters))
+    out.update(hash_library_ms(kw))
+    out.update(hash_bound_of(kw, groups))
+    return out
+
+
 def phase_times(device, calls, parent=None):
     """Every call the main paths made (as recorded in phase 4: the same
     tensors, sizes and options) goes through its wrapper and its plain
@@ -1391,7 +1741,7 @@ def phase_times(device, calls, parent=None):
     (kernel name, keyword arguments)."""
     headline_of = {"groupby_agg": "headline", "groupby_multi_agg": "multi_sum",
                    "extract_ge": "topk_ts_desc", "dim_join_gid": "join_small_dim",
-                   "probe_join_gid": "join_big_dim"}
+                   "probe_join_gid": "join_big_dim", "hash_groupby": "G1_min_max_mean"}
     out = {name: {"other_shapes": {}} for name in _KERNELS}
     checked = 0
     for query, recorded in calls.items():
@@ -1400,6 +1750,8 @@ def phase_times(device, calls, parent=None):
             iters = 20 if head else 5
             if kernel == "extract_ge":
                 res = check_and_time_extract(query, kw, iters)
+            elif kernel == "hash_groupby":
+                res = check_and_time_hash(query, kw, 10 if head else 3)
             elif kernel in ("dim_join_gid", "probe_join_gid"):
                 res = check_and_time_join(kernel, query, kw, iters)
             else:
@@ -1516,6 +1868,20 @@ def phase_times(device, calls, parent=None):
           " against 2^18 unsorted dims")
     out["probe_join_gid"]["other_shapes"].update(
         probe_shapes_off_the_main_path(device, kw1["n"], 5))
+    # the general GROUP BY reached the hash aggregate as the stored i16 key
+    # (dictionary ids), the mask, the u16 and u32 streams as stored and
+    # mean's float64 argument; every row on one key is its slowest shape
+    kernel, hkw = calls["G1_min_max_mean"][0]
+    check(kernel == "hash_groupby" and [k.dtype for k in hkw["keys"]] == [torch.int16]
+          and hkw["mask"] is not None and list(hkw["kinds"]) == ["min", "max", "mean"]
+          and [v.dtype for v in hkw["values"]] == [torch.int16, torch.int32, torch.float64],
+          "G1 did not reach the hash aggregate as an i16 key, a mask, u16 / u32 streams"
+          " as stored and a float64 stream")
+    hot_key = dict(hkw, keys=[torch.zeros_like(hkw["keys"][0])])
+    out["hash_groupby"]["other_shapes"]["one_hot_key (not a query)"] = (
+        check_and_time_hash("one hot key", hot_key, 2))
+    del hot_key
+
     for name, d in out.items():
         d["max_abs_err"] = max([d.get("max_abs_err", 0.0)] + [
             o["max_abs_err"] for o in d["other_shapes"].values()])
@@ -1525,6 +1891,10 @@ def phase_times(device, calls, parent=None):
 
 
 _REPLACES = {
+    "hash_groupby": ("eventql_tpu_torch/kernels/csrc/hash_groupby.cu",
+                     "eventql_tpu/kernels/groupby.py:246 (not a TPU kernel:"
+                     " masked_grouped_aggregate, and :380 masked_grouped_count_distinct)",
+                     "evql_hash_group_ids + evql_hash_aggregate + evql_hash_count_distinct"),
     "groupby_agg": ("eventql_tpu_torch/kernels/csrc/groupby_agg.cu",
                     "eventql_tpu/kernels/pallas_groupby.py:109", "evql_groupby_agg"),
     "groupby_multi_agg": ("eventql_tpu_torch/kernels/csrc/groupby_agg.cu",
@@ -1590,14 +1960,16 @@ def main():
             "other_shapes": t["other_shapes"],
         })
         # probe_join_gid: its table-build kernels alone; dim_join_gid: one
-        # row (its table build) and the earlier kernel
+        # row (its table build) and the earlier kernel; hash_groupby: its
+        # groups, and its group ids + count + first row alone
         for key in ("build_ms", "one_row_device_ms", "one_row_one_dim_device_ms",
-                    "parent_ms", "parent"):
+                    "parent_ms", "parent", "groups", "ids_count_first_ms"):
             if key in t:
                 kernels[-1][key] = t[key]
     log(json.dumps({"e2e_ms": run["e2e"], "rows": N_ROWS,
                     "launches_per_query": run["per_query"],
                     "device_bytes_held": run["resident"],
+                    "peak_bytes_general_group_by": run["peak_general"],
                     "topk_context": context}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -811,6 +811,274 @@ def _run_masked(scan, in_cols, g, key_in, key_all_valid, entries, kinds_static,
     return torch.stack([counts, *outs])
 
 
+# -- the general GROUP BY on device (hash aggregate) --------------------------
+# Every scan-child GROUP BY the string route declines: min / max / mean /
+# count_distinct, float sums, several or computed keys, numeric keys of
+# any span. The counterpart of eventql_tpu/exec/device_exec.py:
+# device_plan_eligible + execute_device_groupby; the grouping is the hash
+# aggregate of kernels/hash_groupby.py on a CUDA device and its plain
+# version (kernels/groupby.py) on the CPU device.
+
+_DEVICE_AGGS = {"sum", "count", "count_distinct", "min", "max", "mean"}
+# general GROUP BY route (execute_device_groupby)
+GENERAL_GROUPBY_COUNT = 0
+
+
+def device_plan_eligible(node) -> bool:
+    """Does the general route take this GROUP BY? (The JAX route's gate,
+    every clause kept.)"""
+    from eventql_tpu_torch.exec.operators import _strip_aggregates
+
+    compatible = torch_expr.expr_is_device_compatible
+    if not isinstance(node, qn.GroupByNode):
+        return False
+    scan = node.table
+    if not isinstance(scan, qn.SequentialScanNode):
+        return False
+    if scan.aggr_strategy != qn.SequentialScanNode.NO_AGGREGATION:
+        return False
+    if scan.keyrange is not None:
+        # partition-scoped: the route reads whole cached columns and
+        # would ignore the keyrange filter; the host path applies it
+        return False
+    # STRING columns flow as dictionary ids: only plain column refs
+    for sl in scan.select_list:
+        if not compatible(sl.expr):
+            return False
+        if sl.expr.return_type() == SType.STRING and not isinstance(
+            sl.expr, ColumnReferenceNode
+        ):
+            return False
+    for g in node.group_exprs:
+        if g.return_type() == SType.STRING and not isinstance(
+            g, ColumnReferenceNode
+        ):
+            return False
+    if scan.where_expr is not None and not compatible(scan.where_expr):
+        return False
+    for g in node.group_exprs:
+        if not compatible(g):
+            return False
+    # aggregates of device exprs; other entries are evaluated on each
+    # group's first row
+    for sl in node.select_list:
+        if has_aggregate_call(sl.expr):
+            aggs: List[CallExpressionNode] = []
+            emit = _strip_aggregates(sl.expr, aggs)
+            for a in aggs:
+                kind = a.sfunction.aggregate.kind
+                if kind not in _DEVICE_AGGS:
+                    return False
+                if a.args and not compatible(a.args[0]):
+                    return False
+                if (
+                    kind == "count_distinct"
+                    and a.args
+                    and a.args[0].return_type() == SType.FLOAT64
+                ):
+                    # the host truncates float payloads with uint64
+                    # casts; the device would count bit patterns
+                    return False
+            if not compatible(emit):
+                return False
+        elif not compatible(sl.expr):
+            return False
+    return True
+
+
+def _stored_input(expr, scan):
+    """The input column a scan-output reference reads unchanged, or None."""
+    if isinstance(expr, ColumnReferenceNode) and expr.column_index is not None:
+        src = scan.select_list[expr.column_index].expr
+        if isinstance(src, ColumnReferenceNode) and src.column_index is not None:
+            return src.column_index
+    return None
+
+
+def _group_key(g, scan, in_cols, host_cols, scan_cols, n, device):
+    """(key stream, validity or None where every row is valid) of one
+    group expression: a plain column as it is stored (narrowed streams
+    compare by their own bits), else the expression's value. A NULL key's
+    bits are 0; its tag goes to the tag word."""
+    idx = _stored_input(g, scan)
+    if idx is not None:
+        dc = in_cols[idx]
+        if _column_all_valid(host_cols[idx]):
+            return dc.data, None
+        data, valid = dc.data, dc.valid
+    else:
+        c = torch_expr.compile_expr(g, scan_cols, n, device)
+        data, valid = c.data, c.valid
+    data = torch.where(valid, data, torch.zeros((), dtype=data.dtype, device=device))
+    return data.expand(n).contiguous(), valid.expand(n)
+
+
+def _null_tags(valids, n, device):
+    """One int64 word a row: bit i set where key i is NULL."""
+    tags = torch.zeros(n, dtype=torch.int64, device=device)
+    for i, v in valids:
+        tags |= (~v).to(torch.int64) << i
+    return tags
+
+
+def _agg_stream(expr, scan, in_cols, scan_cols, n, device):
+    """(stream, unsigned) of one aggregate argument: a plain numeric
+    column as it is stored (a narrowed unsigned one zero-extends in the
+    kernel), else the expression's value as int64 / float64. ``unsigned``
+    makes a 64-bit min / max take the unsigned order."""
+    idx = _stored_input(expr, scan)
+    if idx is not None and in_cols[idx].stype in (*_INT_STYPES, SType.FLOAT64):
+        dc = in_cols[idx]
+        return dc.data, torch_expr.is_unsigned(dc.stype)
+    c = torch_expr.compile_expr(expr, scan_cols, n, device)
+    data = c.data.expand(n)
+    if data.dtype not in (torch.int64, torch.float64):
+        data = data.to(torch.int64)
+    return data.contiguous(), torch_expr.is_unsigned(c.stype)
+
+
+def _aggregate_inputs(calls, scan, in_cols, scan_cols, n, device):
+    """The kernel's value and count_distinct streams for ``calls``, pairs
+    of an aggregate call and the expression it reduces, and where each
+    call's result lies: ("count",), ("agg", j, is_float) or
+    ("distinct", j)."""
+    values, kinds, unsigned, distinct, where = [], [], [], [], []
+    for a, subj in calls:
+        kind = a.sfunction.aggregate.kind
+        if kind == "count" or subj is None:
+            # count(x) counts every row, NULL or not (aggregate.cc:35-38)
+            where.append(("count",))
+            continue
+        stream, uns = _agg_stream(subj, scan, in_cols, scan_cols, n, device)
+        if kind == "count_distinct":
+            where.append(("distinct", len(distinct)))
+            distinct.append(stream)
+            continue
+        where.append(("agg", len(values), stream.dtype == torch.float64))
+        values.append(stream)
+        kinds.append(kind)
+        unsigned.append(uns)
+    return values, kinds, unsigned, distinct, where
+
+
+def _grouped_to_host(res, extra=()):
+    """ONE device->host copy of a Grouped (and of ``extra`` int64[G]
+    rows): (first rows, counts, aggregates, distinct counts, extra rows),
+    the groups in the order of their first rows."""
+    from eventql_tpu_torch.kernels.sort import read_host
+
+    rows = [res.first_index, res.counts, *extra]
+    rows += [a.view(torch.int64) if a.dtype == torch.float64 else a for a in res.aggregates]
+    rows += list(res.distinct)
+    packed = read_host(torch.stack(rows)) if res.first_index.numel() else (
+        np.zeros((len(rows), 0), np.int64))
+    order = np.argsort(packed[0], kind="stable")
+    packed = packed[:, order]
+    ne = len(extra)
+    na = len(res.aggregates)
+    return (packed[0], packed[1], packed[2:2 + ne], packed[2 + ne:2 + ne + na],
+            packed[2 + ne + na:])
+
+
+def _agg_columns(calls, where, counts, aggs, distinct):
+    """Host Columns of the aggregate calls, typed as the calls return."""
+    cols = []
+    ng = len(counts)
+    for a, w in zip(calls, where):
+        if w[0] == "count":
+            arr = counts.view(np.uint64)
+        elif w[0] == "distinct":
+            arr = distinct[w[1]].view(np.uint64)
+        else:
+            arr = aggs[w[1]].view(np.float64 if w[2] else np.uint64)
+        rtype = a.sfunction.return_type
+        cols.append(Column(rtype, arr.astype(dtype_for(rtype)), np.ones(ng, bool)))
+    return cols
+
+
+def execute_device_groupby(node: qn.GroupByNode, txn) -> Optional[Relation]:
+    """Scan -> WHERE -> GROUP BY as a hash aggregate on the device, for
+    plans that ``device_plan_eligible`` admits.
+
+    The WHERE, the keys and the aggregate arguments evaluate in
+    torch_expr (plain stored columns go as they are); one
+    ``hash_groupby`` call groups and aggregates; only O(groups) leaves
+    the device, in one copy after the group count. Groups come in the
+    order of their first rows (the host engine's), and entries that are
+    not aggregates are evaluated by the host evaluator on those rows.
+    Returns None on empty tables (the host path builds the typed empty
+    relation / ungrouped row) and on more key columns than the kernel
+    takes."""
+    from eventql_tpu_torch.exec.operators import _strip_aggregates
+    from eventql_tpu_torch.exec.vector_eval import EvalContext, evaluate_vector
+    from eventql_tpu_torch.kernels.hash_groupby import MAX_KEYS, hash_groupby
+
+    scan: qn.SequentialScanNode = node.table
+    table = txn.get_table_data(scan.table_name)
+    n = table.num_rows
+    if n == 0:
+        return None
+    if not _scan_inputs_present(table, scan):
+        return None
+    if len(node.group_exprs) >= MAX_KEYS:
+        return None  # no room for the tag word: the host engine
+    global GENERAL_GROUPBY_COUNT
+    GENERAL_GROUPBY_COUNT += 1
+    device = txn.device
+    in_cols = _to_device_cols(table.columns, table.names, scan.input_columns, device)
+    by_name = dict(zip(table.names, table.columns))
+    host_cols = [by_name[cname] for cname, _t in scan.input_columns]
+    scan_cols = _LazyScanCols(scan, in_cols, n, device)
+
+    entries = []
+    calls: List[CallExpressionNode] = []
+    for sl in node.select_list:
+        if has_aggregate_call(sl.expr):
+            aggs: List[CallExpressionNode] = []
+            emit = _strip_aggregates(sl.expr, aggs)  # refs count from 0
+            entries.append(("agg", emit, len(calls)))
+            calls.extend(aggs)
+        else:
+            entries.append(("first", sl.expr, None))
+
+    mask = None
+    if scan.where_expr is not None:
+        mask = (
+            torch_expr.compile_expr(scan.where_expr, in_cols, n, device)
+            .data.expand(n)
+            .contiguous()
+        )
+    keys, valids = [], []
+    for i, g in enumerate(node.group_exprs):
+        data, valid = _group_key(g, scan, in_cols, host_cols, scan_cols, n, device)
+        keys.append(data)
+        if valid is not None:
+            valids.append((i, valid))
+    if valids:
+        keys.append(_null_tags(valids, n, device))
+    values, kinds, unsigned, distinct, where = _aggregate_inputs(
+        [(a, a.args[0] if a.args else None) for a in calls], scan, in_cols, scan_cols,
+        n, device)
+    res = hash_groupby(keys, n, mask, values, kinds, unsigned, distinct)
+    first, counts, _extra, aggs, dist = _grouped_to_host(res)
+    ng = len(first)
+    agg_cols = _agg_columns(calls, where, counts, aggs, dist)
+
+    scan_rows = []
+    if any(tag == "first" for tag, _e, _b in entries):
+        # each group's first row, through the host evaluator
+        ctx = EvalContext([c.gather(first) for c in host_cols], ng)
+        scan_rows = [evaluate_vector(sl.expr, ctx) for sl in scan.select_list]
+    out_cols: List[Column] = []
+    for tag, expr, base in entries:
+        if tag == "agg":
+            out_cols.append(evaluate_vector(expr, EvalContext(agg_cols[base:], ng)))
+        else:
+            out_cols.append(evaluate_vector(expr, EvalContext(scan_rows, ng)))
+    names = [sl.column_name() for sl in node.select_list]
+    return Relation(names, out_cols, ng)
+
+
 # -- SELECT ... ORDER BY ... [LIMIT] on device (scan + sort / top-k) ----------
 
 
@@ -1111,12 +1379,10 @@ def try_execute_device_scan_order(
 
 # -- SQL JOIN ... GROUP BY on device ------------------------------------------
 
-# aggregates the join route serves: its bounded branch (integer sums and
-# counts over the dimension buckets). min / max / mean / count_distinct
-# and float sums are the general branch, which rests on the sort-based
-# grouped aggregation (the general device GROUP BY, not ported yet); the
-# host engine serves those plans.
-_JOIN_ROUTE_AGGS = ("sum", "count")
+# the join route serves every kind of _DEVICE_AGGS: integer sums and
+# counts take its bounded branch (the aggregation kernels over the
+# dimension buckets), the rest its general branch (the hash aggregate
+# keyed by the bucket)
 _INT_STYPES = (SType.UINT64, SType.INT64, SType.TIMESTAMP64)
 
 
@@ -1195,7 +1461,9 @@ def join_groupby_analysis(node: qn.GroupByNode, txn):
     Returns None when the plan is outside the subset (the host engine
     takes over): non-INNER joins, multi-conjunction conditions,
     joined-side WHERE, duplicate / NULL join keys, non-u64 keys,
-    aggregates outside ``_JOIN_ROUTE_AGGS``, empty inputs."""
+    aggregates outside ``_DEVICE_AGGS``, count_distinct of a float,
+    empty inputs. ``bounded`` says whether the bounded branch serves
+    the aggregates (integer sums and counts only)."""
     from eventql_tpu_torch.exec.operators import (
         _factorize_rows,
         _find_join_conjunctions,
@@ -1254,6 +1522,7 @@ def join_groupby_analysis(node: qn.GroupByNode, txn):
     # select list: aggregates over fact-side exprs, or the group column
     entries = []
     all_aggs = []
+    bounded = True
     for sl in node.select_list:
         if has_aggregate_call(sl.expr):
             aggs: List[CallExpressionNode] = []
@@ -1261,7 +1530,7 @@ def join_groupby_analysis(node: qn.GroupByNode, txn):
             rewritten = []
             for a in aggs:
                 kind = a.sfunction.aggregate.kind
-                if kind not in _JOIN_ROUTE_AGGS:
+                if kind not in _DEVICE_AGGS:
                     return None
                 subj = a.args[0] if a.args else None
                 if kind == "count" or subj is None:
@@ -1274,13 +1543,16 @@ def join_groupby_analysis(node: qn.GroupByNode, txn):
                     rsubj
                 ):
                     return None
+                if kind == "count_distinct" and rsubj.return_type() == SType.FLOAT64:
+                    return None  # host truncation parity (device_plan_eligible)
                 # u64 accumulation is exact for uint64 and (two's
-                # complement) int64; a float sum is the general branch
-                if (
-                    a.sfunction.return_type not in _INT_STYPES
-                    or rsubj.return_type() not in _INT_STYPES
-                ):
-                    return None
+                # complement) int64: the bounded branch; anything else
+                # (a float sum, min, max, mean, count_distinct) the general
+                bounded = bounded and (
+                    kind == "sum"
+                    and a.sfunction.return_type in _INT_STYPES
+                    and rsubj.return_type() in _INT_STYPES
+                )
                 rewritten.append((a, kind, rsubj))
             base_i = len(all_aggs)
             all_aggs.extend(rewritten)
@@ -1346,6 +1618,7 @@ def join_groupby_analysis(node: qn.GroupByNode, txn):
         "dim_bucket_h": dim_bucket_h,
         "firsts": firsts,
         "group_col": group_col,
+        "bounded": bounded,
     }
 
 
@@ -1434,6 +1707,9 @@ def try_execute_device_join_groupby(
         n,
     )
 
+    if not plan["bounded"]:
+        return _join_general(node, plan, gid, mask, in_cols, scan_cols, n, device)
+
     # the aggregate: rows without a dimension match carry gid -1, which
     # lies outside [0, K), so the kernels drop them themselves. Every
     # sum has a stream of its own.
@@ -1501,6 +1777,39 @@ def try_execute_device_join_groupby(
         )
     group_out = plan["group_col"].gather(firsts[buckets])
 
+    out_cols: List[Column] = []
+    for tag, expr, base_i in plan["entries"]:
+        if tag == "agg":
+            out_cols.append(evaluate_vector(expr, EvalContext(agg_cols[base_i:], ng)))
+        else:
+            out_cols.append(group_out)
+    names = [sl.column_name() for sl in node.select_list]
+    return Relation(names, out_cols, ng)
+
+
+def _join_general(node, plan, gid, mask, in_cols, scan_cols, n, device):
+    """The join route's general branch (float sums, min, max, mean,
+    count_distinct): the hash aggregate keyed by the probe's bucket over
+    the rows that found their dimension row and pass the fact-side
+    WHERE. Each group's first row is its smallest base row, which gives
+    the host engine's presentation order (an inner join on unique
+    dimension keys pairs a fact row at most once)."""
+    from eventql_tpu_torch.exec.vector_eval import EvalContext, evaluate_vector
+    from eventql_tpu_torch.kernels.hash_groupby import hash_groupby
+
+    matched = gid >= 0
+    keep = matched if mask is None else mask & matched
+    all_aggs = plan["all_aggs"]
+    calls = [a for a, _kind, _rsubj in all_aggs]
+    values, kinds, unsigned, distinct, where = _aggregate_inputs(
+        [(a, rsubj) for a, _kind, rsubj in all_aggs], plan["scan"], in_cols, scan_cols,
+        n, device)
+    res = hash_groupby([gid], n, keep, values, kinds, unsigned, distinct)
+    bucket = gid[res.first_index].to(torch.int64)
+    _first, counts, (buckets,), aggs, dist = _grouped_to_host(res, (bucket,))
+    ng = len(counts)
+    agg_cols = _agg_columns(calls, where, counts, aggs, dist)
+    group_out = plan["group_col"].gather(plan["firsts"][buckets])
     out_cols: List[Column] = []
     for tag, expr, base_i in plan["entries"]:
         if tag == "agg":

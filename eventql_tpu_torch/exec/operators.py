@@ -491,10 +491,13 @@ def _exec_group_by(node: qn.GroupByNode, txn) -> Relation:
         raise _not_ported("query cache (exec.query_cache)")
 
     if getattr(txn, "device", None) is not None:
-        # the CUDA routes; None -> shape not routable (min/max/mean
-        # aggregates, unbounded keys: the general device GROUP BY, not
-        # ported yet), the host engine below serves it
+        # the CUDA routes, in the JAX package's order: the bounded string
+        # / numeric-key route, the join route, then the general (hash
+        # aggregate) route for every other scan-child plan its gate
+        # admits; None -> not routable, the host engine below serves it
         from eventql_tpu_torch.exec.device_exec import (
+            device_plan_eligible,
+            execute_device_groupby,
             try_execute_device_join_groupby,
             try_execute_string_groupby,
         )
@@ -505,6 +508,10 @@ def _exec_group_by(node: qn.GroupByNode, txn) -> Relation:
         result = try_execute_device_join_groupby(node, txn)
         if result is not None:
             return result
+        if device_plan_eligible(node):
+            result = execute_device_groupby(node, txn)
+            if result is not None:
+                return result
 
     child = execute_node(node.table, txn)
     n = child.num_rows

@@ -25,7 +25,7 @@ pytestmark = pytest.mark.cuda
 
 
 KERNELS = {"groupby_agg", "groupby_multi_agg", "extract_ge", "dim_join_gid",
-           "probe_join_gid"}
+           "probe_join_gid", "hash_groupby"}
 
 
 @pytest.fixture
@@ -63,8 +63,13 @@ def test_sql_route_on_the_card_equals_host_engine(cuda_device):
     assert per_query["join_small_dim_two_sums"] == {
         "dim_join_gid": 1, "groupby_multi_agg": 1}
     assert per_query["join_big_dim"] == {"probe_join_gid": 1, "groupby_agg": 1}
-    assert run["launches_by_path"]["join"]["dim_join_gid"] == 3 * 2
+    assert run["launches_by_path"]["join"]["dim_join_gid"] == 4 * 2  # J1 too
     assert run["e2e"]["join_big_dim"]["readbacks"] == 1
+    for name in chip_smoke.GENERAL_SQL:
+        assert per_query[name] == {"hash_groupby": 1}
+        assert run["e2e"][name]["readbacks"] == 2  # the group count, then the groups
+    assert per_query[chip_smoke.J1[0]] == {"dim_join_gid": 1, "hash_groupby": 1}
+    assert run["launches_by_path"]["general_group_by"]["hash_groupby"] == 5 * 2
     # each recorded call, repeated: kernel and plain version agree
     times = chip_smoke.phase_times(cuda_device, run["calls"])
     assert set(times) == KERNELS
@@ -314,3 +319,59 @@ def test_cuda_tensor_without_library_raises(cuda_device, monkeypatch, tmp_path):
     for probe in (tjoin.dim_join_gid, tjoin.probe_join_gid):
         with pytest.raises(_build.KernelBuildError):
             probe(keys, keys[:4].contiguous(), gid[:4].contiguous())
+    from eventql_tpu_torch.kernels import hash_groupby as hg
+
+    monkeypatch.setattr(hg, "_lib_ready", False)
+    with pytest.raises(_build.KernelBuildError):
+        hg.hash_groupby([keys], 16)
+
+
+@pytest.mark.parametrize("n", [1, 2, 33, 256, 257, 100_003])
+def test_hash_groupby_cases_at_every_size_on_the_card(cuda_device, n):
+    """The phase-3 cases of the hash aggregate at sizes around one block
+    and below one warp: kernel equal to its plain version."""
+    import chip_smoke
+    from eventql_tpu_torch.kernels import hash_groupby as hg
+
+    rng = np.random.default_rng(n)
+    before = hg.LAUNCHES["hash_groupby"]
+    cases = 0
+    for label, kw in chip_smoke.hash_cases(max(n, 20), cuda_device, rng):
+        kw = dict(kw, n=min(kw["n"], n))
+        got, want = hg.hash_groupby(**kw), hg.hash_groupby_plain(**kw)
+        torch.cuda.synchronize()
+        ok, err = chip_smoke.same_grouped(got, want)
+        assert ok, f"{label} n={n}: max |diff| {err}"
+        cases += 1
+    assert hg.LAUNCHES["hash_groupby"] - before == cases
+
+
+def test_general_route_on_the_card_never_runs_the_plain_version(cuda_device, monkeypatch):
+    """G1-G5 and J1 through Runtime(device="cuda") at 2^20 rows with the
+    plain grouped aggregation made to raise: the route runs the kernel
+    and nothing else, and its rows equal the host engine's."""
+    import chip_smoke
+    from eventql_tpu_torch.exec import device_exec
+    from eventql_tpu_torch.exec.runtime import Runtime
+    from eventql_tpu_torch.kernels import groupby as tgroupby
+    from eventql_tpu_torch.kernels import hash_groupby as hg
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the plain version ran on the card")
+
+    for mod in (tgroupby, hg):
+        monkeypatch.setattr(mod, "masked_grouped_aggregate", refuse)
+        monkeypatch.setattr(mod, "masked_grouped_count_distinct", refuse)
+    monkeypatch.setattr(hg, "hash_groupby_plain", refuse)
+    n = 1 << 20
+    cols, dictionary = chip_smoke.make_table(n, seed=8)
+    provider = chip_smoke.add_dims(
+        chip_smoke.provider_of(cols, dictionary, n), chip_smoke.make_dims(seed=9))
+    rt, host = Runtime(device=cuda_device), Runtime(device=None)
+    for name, sql in [*chip_smoke.GENERAL_SQL.items(), chip_smoke.J1]:
+        before = (device_exec.GENERAL_GROUPBY_COUNT + device_exec.JOIN_GROUPBY_COUNT,
+                  hg.LAUNCHES["hash_groupby"])
+        got = chip_smoke.run_query(rt, provider, sql).rows
+        assert (device_exec.GENERAL_GROUPBY_COUNT + device_exec.JOIN_GROUPBY_COUNT,
+                hg.LAUNCHES["hash_groupby"]) == (before[0] + 1, before[1] + 1), name
+        assert got == chip_smoke.run_query(host, provider, sql).rows, name

@@ -53,8 +53,13 @@ def _outcome(fn):
         return ("error", type(e).__name__, str(e))
 
 
+def _routed():
+    return (device_exec.FUSED_GROUPBY_COUNT + device_exec.MULTI_SUM_GROUPBY_COUNT
+            + device_exec.GENERAL_GROUPBY_COUNT)
+
+
 def _run_port(provider, query):
-    routed = device_exec.FUSED_GROUPBY_COUNT + device_exec.MULTI_SUM_GROUPBY_COUNT
+    routed = _routed()
 
     def run():
         rt = Runtime(device="cpu")
@@ -62,12 +67,7 @@ def _run_port(provider, query):
         return (res.columns, res.rows)
 
     out = _outcome(run)
-    routed = (
-        device_exec.FUSED_GROUPBY_COUNT
-        + device_exec.MULTI_SUM_GROUPBY_COUNT
-        - routed
-    )
-    return out, routed
+    return out, _routed() - routed
 
 
 @pytest.mark.parametrize("seed", SEEDS)
@@ -78,6 +78,16 @@ def test_fuzz_port_matches_jax_package(seed):
     assert got == want, (
         f"seed={seed} query={query!r}\nwant={want[1][:8]}\ngot ={got[1][:8]}"
     )
+
+
+def test_fuzz_is_not_vacuous():
+    """Most of the grammar must take one of the port's device routes
+    (the general route serves min / max / mean / count_distinct, float
+    sums, several and computed keys), otherwise the fuzz compares host
+    engine with host engine. The JAX package's own test asks the same
+    of its device gate on the first 40 seeds."""
+    hits = sum(_run_port(_hand_over(p), q)[1] for p, q in map(_case, range(40)))
+    assert hits >= 24, f"only {hits}/40 fuzz queries took a device route"
 
 
 # -- the same tables under a grammar narrowed to this slice's route -----------

@@ -171,9 +171,10 @@ def test_host_engines_agree(query):
 @pytest.mark.parametrize("query", [q for q in QUERIES if " join " in q and "group by" in q])
 def test_join_route_agrees_with_the_jax_host_engine(query):
     """The same join + GROUP BY queries with the port on device="cpu":
-    the integer sum / count ones take the join route (through the
-    kernels' plain versions), the others fall through to the host
-    engine; either way rows and their order are the JAX host engine's."""
+    every one takes the join route (through the kernels' plain
+    versions): the integer sum / count ones its bounded branch, the
+    min / max / mean one its general branch; rows and their order are
+    the JAX host engine's."""
     from eventql_tpu_torch.exec import device_exec
 
     pj, pt = _providers()
@@ -183,8 +184,7 @@ def test_join_route_agrees_with_the_jax_host_engine(query):
     before = device_exec.JOIN_GROUPBY_COUNT
     got = rt.execute_query(rt.new_transaction(pt), query)[0]
     assert (got.columns, got.rows) == (want.columns, want.rows)
-    routable = not any(f in query for f in ("min(", "max(", "mean("))
-    assert device_exec.JOIN_GROUPBY_COUNT - before == (1 if routable else 0)
+    assert device_exec.JOIN_GROUPBY_COUNT - before == 1
 
 
 ERRORS = [

@@ -74,6 +74,15 @@ assert [[int(x) for x in r] for r in res.rows] == [
      int(v[hit & (v // 50 % 3 == g)].sum()),
      int((v[hit & (v // 50 % 3 == g)] + 1).sum())] for g in range(3)], res.rows
 assert device_exec.JOIN_GROUPBY_COUNT == 1
+res = rt.build_query_plan(
+    rt.new_transaction(p),
+    "select k, min(v), max(v), count_distinct(v) from t group by k order by k;",
+).execute(0)
+k = rel.columns[0].data
+assert [[int(x) for x in r[1:]] for r in res.rows] == [
+    [int(v[k == i].min()), int(v[k == i].max()), len(np.unique(v[k == i]))]
+    for i in range(4)], res.rows
+assert device_exec.GENERAL_GROUPBY_COUNT == 1
 
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "jaxlib" or m == "eventql_tpu" or m.startswith("eventql_tpu.")]
@@ -92,8 +101,10 @@ for make in (lambda: Runtime(), lambda: Runtime(device="cuda"),
 
 # a CUDA tensor is never served by the plain version: without a card
 # the tensor cannot even be made, and the wrapper has no other path
-from eventql_tpu_torch.kernels import extract, groupby, groupby_agg, join, sort
+from eventql_tpu_torch.kernels import (
+    extract, groupby, groupby_agg, hash_groupby, join, sort)
 assert groupby_agg.LAUNCHES == {"groupby_agg": 0, "groupby_multi_agg": 0}
+assert hash_groupby.LAUNCHES == {"hash_groupby": 0}
 assert extract.LAUNCHES == {"extract_ge": 0}
 assert join.LAUNCHES == {"dim_join_gid": 0, "probe_join_gid": 0, "build_join_table": 0}
 keys = torch.tensor([7, -1, 9, 8])
@@ -102,6 +113,11 @@ assert join.join_gid(keys, torch.tensor([9, -1]), torch.tensor([4, 5], dtype=tor
 key = groupby.sortable_u64(torch.tensor([3, -1, 2]), descending=True)
 assert sort.topk_permutation(key, 1).tolist() == [1]
 assert extract.extract_ge(torch.tensor([1, 7, 9], dtype=torch.int32), 7, 2).tolist() == [1, 2]
+g = hash_groupby.hash_groupby([torch.tensor([5, 3, 5])], 3, values=[torch.tensor([1, 2, 4])],
+                              kinds=["max"])
+assert (g.first_index.tolist(), g.counts.tolist(), g.aggregates[0].tolist()) == (
+    [1, 0], [1, 2], [2, 4])
+assert hash_groupby.LAUNCHES == {"hash_groupby": 0}
 print("ISOLATED-OK")
 """
 
@@ -168,4 +184,4 @@ def test_kernel_build_needs_a_compiler(tmp_path, monkeypatch):
         pytest.skip("a CUDA toolkit is installed here")
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.build_all()
-    assert _build.sources() == ["extract", "groupby_agg", "join"]
+    assert _build.sources() == ["extract", "groupby_agg", "hash_groupby", "join"]
