@@ -9,12 +9,18 @@ Phases (any mismatch or exception ends the run with a non-zero code):
   3. kernels: every kernel wrapper against its plain PyTorch version on
      the card, exact equality (integer sums and row indices: tolerance 0;
      the hash aggregate's groups in first-row order, its floats multiples
-     of 1/64, so that every sum is exact in any order);
+     of 1/64, so that every sum is exact in any order), the hash
+     aggregate in each of its tiers (shared, direct global, hash) and
+     count_distinct forms (shared bitmap, global bitmap, set) at their
+     edges (u32 keys of 2^31 and more, a NULL key outside the stats, a
+     negative base, one hot key, streams off a 16-byte boundary), and its
+     tier rule against the launcher's at the boundaries;
   4. main paths: SQL text -> Runtime(device="cuda") -> ResultList on a
      partition-sized table (2^26 rows, ~2.8 GB on the device): first the
      GROUP BY sum/count queries, then the general GROUP BY queries G1-G5
      (min / max / mean, a key beyond K_CAP, two keys, count_distinct,
-     float sums: the hash aggregate, with its peak device memory), then
+     float sums: the hash aggregate, each in the tier its key spans
+     choose, with its peak device memory), then
      the ORDER BY [LIMIT] queries, then the fact-dim JOIN + GROUP BY
      queries (dimension tables of 1024 and 2^18 rows; J1 with min / max
      through the join route's general branch), each path with the launch
@@ -26,8 +32,10 @@ Phases (any mismatch or exception ends the run with a non-zero code):
      made is repeated on the same tensors through the wrapper and the
      plain version, which must be equal (tolerance 0); then CUDA-event
      times of both beside the bound and a library call (for the hash
-     aggregate the chain torch.unique + scatter_reduce_; and its G1 call
-     with every row on one key), and the warm
+     aggregate the chain torch.unique + scatter_reduce_, the same call in
+     the hash tier with the spans withheld, its slots + count + first row
+     alone, the bytes it allocates; and its G1 call with every row on one
+     key, in both tiers), and the warm
      end-to-end time per query; the big-table join probe also against
      dimension tables of 16384 and 2^22 rows, and its table build alone;
      the small-table probe also at D = 8192 and D = 1024 with u64 keys
@@ -502,6 +510,108 @@ def hash_cases(n, device, rng):
     yield f"{more} value streams", dict(
         keys=[t((k5000 % 500).astype(np.int32))], n=n, mask=mask,
         values=[t(i64 + j) for j in range(more)], kinds=["sum", "min", "max", "sum"] * (more // 4))
+    # the direct tiers: keys with spans (TIER_CASES names the tier and the
+    # count_distinct forms each must take at phase 3's size)
+    yield "shared tier: 2 keys, 1000 slots, every kind", dict(
+        keys=[t((k5000 % 50).astype(np.int16)), t((k5000 // 50 % 20).astype(np.int32))],
+        n=n, mask=mask, key_spans=[(0, 50, False), (0, 20, False)], **every,
+        distinct_spans=[(0, 50, False), (0, 997, True)])
+    yield "global tier: 1 key, 5000 slots, every kind", dict(
+        keys=[t(k5000.astype(np.int64))], n=n, mask=mask, key_spans=[(0, 5000, False)],
+        **every, distinct_spans=[(0, 50, False), (0, 997, True)])
+    u32 = (np.uint64(1 << 31) + (k5000 % 3000).astype(np.uint64)).astype(np.uint32)
+    three = dict(values=every["values"][:3], kinds=every["kinds"][:3],
+                 values_unsigned=every["values_unsigned"][:3])
+    yield "u32 keys >= 2^31 (read zero-extended)", dict(
+        keys=[t(u32)], n=n, mask=mask, key_spans=[(1 << 31, 3000, True)], **three)
+    valid_k = rng.random(n) < 0.8
+    yield "NULL key outside the stats ([100, 200), NULL read as 0)", dict(
+        keys=[t(np.where(valid_k, 100 + k5000 % 100, 0).astype(np.int64)),
+              t((~valid_k).astype(np.int64))],
+        n=n, mask=mask, key_spans=[(0, 200, False), (0, 2, False)], **three)
+    yield "negative base", dict(
+        keys=[t((k5000 % 500 - 1000).astype(np.int64))], n=n, mask=None,
+        key_spans=[(-1000, 500, False)], **three)
+    yield "bitmap count_distinct, global bitmap, and a set", dict(
+        keys=[t(k5000.astype(np.int32))], n=n, mask=mask, key_spans=[(0, 5000, False)],
+        distinct=[small, t(u64 % np.uint64(997)), t(u64)],
+        distinct_spans=[(0, 50, False), (0, 997, True), None])
+    zeros = t(np.zeros(n, np.int16))
+    yield "one hot key, shared tier", dict(
+        keys=[zeros], n=n, mask=mask, key_spans=[(0, 1024, False)], **every)
+    yield "one hot key, global tier", dict(
+        keys=[zeros], n=n, mask=mask, key_spans=[(0, 40000, False)], **every)
+    yield "no key, shared tier", dict(keys=[], n=n, mask=mask, key_spans=[], **every)
+    yield "unaligned streams, shared tier", dict(
+        keys=[t((k5000 % 1000).astype(np.int16))[1:]], n=n - 1, mask=mask[1:],
+        values=[v[1:] for v in every["values"]], kinds=every["kinds"],
+        values_unsigned=every["values_unsigned"], key_spans=[(0, 1000, False)])
+    yield f"{more} value streams, shared tier", dict(
+        keys=[t((k5000 % 500).astype(np.int32))], n=n, mask=mask,
+        key_spans=[(0, 500, False)],
+        values=[t(i64 + j) for j in range(more)], kinds=["sum", "min", "max", "sum"] * (more // 4))
+
+
+# the tier and count_distinct forms each spanned case of hash_cases takes at
+# phase 3's size
+TIER_CASES = {
+    "shared tier: 2 keys, 1000 slots, every kind": ("shared", {"bitmap_shared": 2}),
+    "global tier: 1 key, 5000 slots, every kind": ("global", {"bitmap_shared": 1,
+                                                              "bitmap_global": 1}),
+    "u32 keys >= 2^31 (read zero-extended)": ("shared", {}),
+    "NULL key outside the stats ([100, 200), NULL read as 0)": ("shared", {}),
+    "negative base": ("shared", {}),
+    "bitmap count_distinct, global bitmap, and a set": (
+        "shared", {"bitmap_shared": 1, "bitmap_global": 1, "set": 1}),
+    "one hot key, shared tier": ("shared", {"set": 2}),
+    "one hot key, global tier": ("global", {"set": 2}),
+    "no key, shared tier": ("shared", {"set": 2}),
+    "unaligned streams, shared tier": ("shared", {}),
+    f"{hg.MAX_VALUES + 4} value streams, shared tier": ("shared", {}),
+}
+
+
+def expected_forms(kw, smem):
+    """The tier and count_distinct forms of a hash_groupby call, by the
+    wrapper's mirror of the launchers' rules."""
+    spans, n = kw.get("key_spans"), kw["n"]
+    tier = hg.tier_of(spans, min(len(kw.get("values", ())), hg.MAX_VALUES), n, smem)
+    out = {tier: 1}
+    dspans = kw.get("distinct_spans") or [None] * len(kw.get("distinct", ()))
+    for sp in dspans:
+        form = "set" if tier == "hash" else hg.distinct_form(
+            hg._slots(spans), sp, n, smem)
+        out[form] = out.get(form, 0) + 1
+    return out
+
+
+def tier_edges(smem, n):
+    """(span sizes, nv, n, tier) at the tier rule's boundaries: one slot
+    either side of the shared cap and of the direct-global memory limit,
+    a span product that overflows int64, a key with no span, no key. For
+    n of 100 000 rows or more (below, the limit lies under the cap)."""
+    lim = hg.direct_limit(n)
+    out = []
+    for nv in (0, 3, hg.MAX_VALUES):
+        cap = smem // (8 + 8 * nv)
+        top = lim // (8 * (2 + nv))
+        out += [([cap], nv, n, "shared"), ([cap + 1], nv, n, "global"),
+                ([2, cap // 2], nv, n, "shared"), ([2, cap // 2 + 1], nv, n, "global"),
+                ([top], nv, n, "global"), ([top + 1], nv, n, "hash")]
+    out += [([1 << 31, 1 << 31, 4], 0, n, "hash"), ([10, None], 0, n, "hash"),
+            ([None], 0, n, "hash"), ([], 0, n, "shared"), ([1], 16, 0, "shared")]
+    return out
+
+
+def distinct_edges(smem, n):
+    """(slots, payload span, n, form) at the count_distinct form's
+    boundaries."""
+    lim = hg.direct_limit(n)
+    words = smem // 4
+    return [(words, 32, n, "bitmap_shared"), (words, 33, n, "bitmap_global"),
+            (words + 1, 32, n, "bitmap_global"), (lim // 4, 32, n, "bitmap_global"),
+            (lim // 4 + 1, 32, n, "set"), (1, None, n, "set"), (3, 1, n, "bitmap_shared"),
+            (1 << 30, 1 << 30, n, "set")]
 
 
 def same_grouped(got, want):
@@ -533,7 +643,7 @@ def check_hash_case(label, got, want):
     ok, err = same_grouped(got, want)
     check(ok, f"hash_groupby [{label}]: kernel and plain version disagree"
           f" (max |diff| {err})")
-    check(len(got.first_index) > 0, f"hash_groupby [{label}]: no group")
+    check(int((got.counts > 0).sum()) > 0, f"hash_groupby [{label}]: no group")
     return err
 
 
@@ -563,6 +673,12 @@ _KERNELS = {
 
 def launch_counts():
     return {name: k.launches for name, k in _KERNELS.items()}
+
+
+def _forms_since(forms):
+    """hash_groupby's launches by tier and count_distinct form since
+    ``forms`` (a copy of hg.FORMS)."""
+    return {k: hg.FORMS[k] - forms[k] for k in hg.FORMS if hg.FORMS[k] != forms[k]}
 
 
 def zero_launch_counts():
@@ -627,11 +743,20 @@ def phase_kernels(device, n):
         check(0 < hits and (hits < rows or rows == 1),
               f"{name} [{label}]: {hits} hits in {rows} rows")
         cases += 1
+    smem = ga.smem_optin(device)
     for label, kw in hash_cases(n, device, rng):
+        forms = dict(hg.FORMS)
         got = hg.hash_groupby(**kw)
         want = hg.hash_groupby_plain(**kw)
         torch.cuda.synchronize()
         check_hash_case(label, got, want)
+        took = _forms_since(forms)
+        want_forms = expected_forms(kw, smem)
+        if n == N_KERNEL_CASE_ROWS and label in TIER_CASES:
+            tier, distinct_forms = TIER_CASES[label]
+            check(want_forms == {tier: 1, **distinct_forms},
+                  f"hash_groupby [{label}]: the rule gives {want_forms}")
+        check(took == want_forms, f"hash_groupby [{label}]: took {took}, expected {want_forms}")
         if label.startswith("1 key"):
             a = got.aggregates  # u64 sum/min/max, i64 sum/min/max, f64 sum/min/max/mean
             check(bool((a[2] < 0).any()), "no group's u64 max is 2^63 or more")
@@ -639,9 +764,22 @@ def phase_kernels(device, n):
             check(all(bool(torch.isnan(a[j]).any()) for j in (7, 8, 9)),
                   "no NaN group under min, max and mean")
             check(bool((got.distinct[0] > 1).all()), "count_distinct: nothing repeated")
-        if label == "one hot key":
-            check(got.counts.tolist() == [int(kw["mask"][:n].sum())], "hot key: one group")
+        if label.startswith("one hot key"):
+            check(hg.in_first_row_order(got).counts.tolist() == [int(kw["mask"][:n].sum())],
+                  f"{label}: one group")
         cases += 1
+    # the tier rule and the count_distinct form: kernels/hash_groupby.py
+    # mirrors the launcher's
+    for spans, nv, rows, tier in tier_edges(smem, n):
+        check(hg.launcher_tier(spans, nv, rows, smem) == tier
+              == hg.tier_of(None if None in spans else [(0, s, False) for s in spans],
+                            nv, rows, smem),
+              f"tier of spans {spans}, {nv} values, {rows} rows: expected {tier}")
+    for slots, span, rows, form in distinct_edges(smem, n):
+        check(hg.launcher_distinct_form(slots, span, rows, smem) == form
+              == hg.distinct_form(slots, None if span is None else (0, span, False), rows,
+                                  smem),
+              f"count_distinct form of {slots} slots, payload span {span}: expected {form}")
     # dim_join_gid's launcher shapes its table; kernels/join.py mirrors the rule
     slots_of = kj._lib().evql_dim_table_slots
     for key_bytes in (2, 4, 8):
@@ -1001,17 +1139,34 @@ def join_min_max_rows(region, v, w):
     return [["r%04d" % o, str(int(mn[o])), str(int(mx[o]))] for o in occ]
 
 
+# the tier (and count_distinct form) each general query's hash_groupby
+# call takes: the spans of a dictionary, of cached min / max, of a join's
+# buckets
+GENERAL_TIERS = {
+    "G1_min_max_mean": {"shared": 1},
+    "G2_key_beyond_k_cap": {"global": 1},
+    "G3_two_keys": {"global": 1},
+    "G4_count_distinct": {"shared": 1, "bitmap_shared": 1},
+    "G5_float_sums": {"shared": 1},
+    J1[0]: {"shared": 1},
+}
+
+
 def general_path(rt, full, qs, reps):
     """The general GROUP BY path at full size: rows and their order must
     equal the numpy answer, the route counter rise once a run, and each
-    run launch the hash aggregate once. Returns (e2e, launches per query,
-    the last run's kernel calls per query)."""
+    run launch the hash aggregate once, in the tier GENERAL_TIERS names.
+    Returns (e2e, launches per query, the last run's kernel calls per
+    query)."""
     e2e, launches_by_query, calls = {}, {}, {}
     for name, sql, expected in qs:
+        forms = dict(hg.FORMS)
         before = launch_counts()
         route0 = device_exec.GENERAL_GROUPBY_COUNT
         reads0 = ksort.READBACKS
+        torch.cuda.reset_peak_memory_stats()
         res, times, n_calls, recorded = _timed_runs(rt, full, sql, reps)
+        peak = torch.cuda.max_memory_allocated()
         got = res.rows
         check(len(got) == len(expected),
               f"{name}: {len(got)} groups, expected {len(expected)}")
@@ -1024,9 +1179,12 @@ def general_path(rt, full, qs, reps):
         check(delta == want, f"{name}: launches {delta}, expected {want}")
         check(n_calls == reps and [c[0] for c in recorded] == ["hash_groupby"],
               f"{name}: recorded calls")
+        took = {k: c // reps for k, c in _forms_since(forms).items()}
+        check(took == GENERAL_TIERS[name], f"{name}: tiers {took}, expected"
+              f" {GENERAL_TIERS[name]}")
         calls[name] = recorded
         launches_by_query[name] = {"hash_groupby": 1}
-        e2e[name] = _e2e(times, groups=len(got),
+        e2e[name] = _e2e(times, groups=len(got), tier=took, peak_bytes=peak,
                          readbacks=(ksort.READBACKS - reads0) // reps)
     return e2e, launches_by_query, calls
 
@@ -1158,6 +1316,7 @@ def join_path(rt, full, qs, reps):
     for name, sql, per_run, expected in qs:
         if expected is None:
             continue  # the host engine's: run on the prefix only
+        forms = dict(hg.FORMS)
         before = launch_counts()
         route0 = device_exec.JOIN_GROUPBY_COUNT
         reads0 = ksort.READBACKS
@@ -1175,10 +1334,13 @@ def join_path(rt, full, qs, reps):
         check(delta == want, f"{name}: launches {delta}, expected {want}")
         check(n_calls == reps * len(per_run)
               and [c[0] for c in recorded] == list(per_run), f"{name}: recorded calls")
+        took = {k: c // reps for k, c in _forms_since(forms).items()}
+        check(took == GENERAL_TIERS.get(name, {}), f"{name}: tiers {took}")
         calls[name] = recorded
         launches_by_query[name] = dict(per_run)
         e2e[name] = _e2e(times, groups=len(got),
-                         readbacks=(ksort.READBACKS - reads0) // reps)
+                         readbacks=(ksort.READBACKS - reads0) // reps,
+                         **({"tier": took} if took else {}))
     return e2e, launches_by_query, calls
 
 
@@ -1211,10 +1373,9 @@ def phase_main_path(device, n, n_prefix, reps):
         f" rows; launches {g_launches}")
 
     zero_launch_counts()
-    torch.cuda.reset_peak_memory_stats(device)
     h_e2e, h_per_query, h_calls = general_path(rt, full, hqs, reps)
     h_launches = launch_counts()
-    peak = torch.cuda.max_memory_allocated(device)
+    peak = max(e["peak_bytes"] for e in h_e2e.values())
     check(h_launches["hash_groupby"] > 0, "hash_groupby: not launched on the general path")
     total = torch.cuda.get_device_properties(device).total_memory
     check(peak < total // 2, f"general path: peak {peak} bytes of {total}")
@@ -1712,22 +1873,44 @@ def hash_library_ms(kw):
                         " mask applied, keys widened and stacked beforehand")
 
 
+def _peak_bytes(fn):
+    """Device bytes a call allocates at its peak beyond what was held."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - held
+
+
 def check_and_time_hash(label, kw, iters):
     """hash_groupby on a recorded call: equal to its plain version (in
     first-row order; integers exactly, order-proof floats by their bits),
-    then the kernel, the plain version and the library chain timed."""
+    then the kernel in its tier, the same call in the hash tier (spans
+    withheld, also held to the plain version), the plain version and the
+    library chain timed, and the bytes each tier allocates at its peak."""
+    forms = dict(hg.FORMS)
     got, want = hg.hash_groupby(**kw), hg.hash_groupby_plain(**kw)
     torch.cuda.synchronize()
+    tier = [k for k in hg.TIERS if hg.FORMS[k] > forms[k]][0]
     err = check_hash_case(label, got, want)
-    groups = int(got.first_index.numel())
+    as_hash = dict(kw, key_spans=None, distinct_spans=None)
+    err = max(err, check_hash_case(label + " (hash tier)", hg.hash_groupby(**as_hash), want))
+    groups = int(want.first_index.numel())
     del got, want
-    out = dict(max_abs_err=err, groups=groups,
+    out = dict(max_abs_err=err, groups=groups, tier=tier,
                ms=cuda_ms(lambda: hg.hash_groupby(**kw), iters),
+               hash_tier_ms=cuda_ms(lambda: hg.hash_groupby(**as_hash), iters),
                plain_ms=cuda_ms(lambda: hg.hash_groupby_plain(**kw), 2, warmup=1),
-               # the group ids, count and first row alone: the rest of ms is
-               # the value streams' atomics and count_distinct's table
-               ids_count_first_ms=cuda_ms(
-                   lambda: hg.hash_groupby(kw["keys"], kw["n"], kw.get("mask")), iters))
+               # the group ids (slots), count and first row alone, in the
+               # call's tier and in the hash tier: the rest of ms is the
+               # value streams' atomics and count_distinct
+               ids_count_first_ms=cuda_ms(lambda: hg.hash_groupby(
+                   kw["keys"], kw["n"], kw.get("mask"), key_spans=kw.get("key_spans")), iters),
+               hash_tier_ids_count_first_ms=cuda_ms(
+                   lambda: hg.hash_groupby(kw["keys"], kw["n"], kw.get("mask")), iters),
+               peak_bytes=_peak_bytes(lambda: hg.hash_groupby(**kw)),
+               hash_tier_peak_bytes=_peak_bytes(lambda: hg.hash_groupby(**as_hash)))
     out.update(hash_library_ms(kw))
     out.update(hash_bound_of(kw, groups))
     return out
@@ -1877,9 +2060,18 @@ def phase_times(device, calls, parent=None):
           and [v.dtype for v in hkw["values"]] == [torch.int16, torch.int32, torch.float64],
           "G1 did not reach the hash aggregate as an i16 key, a mask, u16 / u32 streams"
           " as stored and a float64 stream")
+    check(hkw["key_spans"] == [(0, N_KEYS, False)], "G1's key span is not its dictionary's")
     hot_key = dict(hkw, keys=[torch.zeros_like(hkw["keys"][0])])
     out["hash_groupby"]["other_shapes"]["one_hot_key (not a query)"] = (
-        check_and_time_hash("one hot key", hot_key, 2))
+        check_and_time_hash("one hot key", hot_key, 5))
+    # the same in the direct global tier: G3's call (two keys, 102 400
+    # slots) with every row on the slot of (0, 0)
+    kernel, g3 = calls["G3_two_keys"][0]
+    hot_key = dict(g3, keys=[torch.zeros_like(k) for k in g3["keys"]])
+    out["hash_groupby"]["other_shapes"]["G3 with one hot key (not a query)"] = (
+        check_and_time_hash("G3, one hot key", hot_key, 5))
+    check(out["hash_groupby"]["other_shapes"]["G3 with one hot key (not a query)"]["tier"]
+          == "global", "G3's hot key did not take the direct global tier")
     del hot_key
 
     for name, d in out.items():
@@ -1894,7 +2086,9 @@ _REPLACES = {
     "hash_groupby": ("eventql_tpu_torch/kernels/csrc/hash_groupby.cu",
                      "eventql_tpu/kernels/groupby.py:246 (not a TPU kernel:"
                      " masked_grouped_aggregate, and :380 masked_grouped_count_distinct)",
-                     "evql_hash_group_ids + evql_hash_aggregate + evql_hash_count_distinct"),
+                     "evql_hash_direct + evql_hash_distinct_direct (shared and global"
+                     " tiers); evql_hash_group_ids + evql_hash_aggregate +"
+                     " evql_hash_count_distinct (hash tier)"),
     "groupby_agg": ("eventql_tpu_torch/kernels/csrc/groupby_agg.cu",
                     "eventql_tpu/kernels/pallas_groupby.py:109", "evql_groupby_agg"),
     "groupby_multi_agg": ("eventql_tpu_torch/kernels/csrc/groupby_agg.cu",
@@ -1963,7 +2157,9 @@ def main():
         # row (its table build) and the earlier kernel; hash_groupby: its
         # groups, and its group ids + count + first row alone
         for key in ("build_ms", "one_row_device_ms", "one_row_one_dim_device_ms",
-                    "parent_ms", "parent", "groups", "ids_count_first_ms"):
+                    "parent_ms", "parent", "groups", "ids_count_first_ms", "tier",
+                    "hash_tier_ms", "hash_tier_ids_count_first_ms", "peak_bytes",
+                    "hash_tier_peak_bytes"):
             if key in t:
                 kernels[-1][key] = t[key]
     log(json.dumps({"e2e_ms": run["e2e"], "rows": N_ROWS,

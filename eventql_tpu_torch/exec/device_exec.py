@@ -896,29 +896,31 @@ def _stored_input(expr, scan):
 
 
 def _group_key(g, scan, in_cols, host_cols, scan_cols, n, device):
-    """(key stream, validity or None where every row is valid) of one
-    group expression: a plain column as it is stored (narrowed streams
-    compare by their own bits), else the expression's value. A NULL key's
-    bits are 0; its tag goes to the tag word."""
+    """(key stream, validity or None where every row is valid, span) of
+    one group expression: a plain column as it is stored (narrowed
+    streams compare by their own bits) with its ``_stored_span``, else
+    the expression's value, with no span. A NULL key's bits are 0; its
+    tag goes to the tag word."""
     idx = _stored_input(g, scan)
     if idx is not None:
-        dc = in_cols[idx]
-        if _column_all_valid(host_cols[idx]):
-            return dc.data, None
-        data, valid = dc.data, dc.valid
+        dc, hc = in_cols[idx], host_cols[idx]
+        if _column_all_valid(hc):
+            return dc.data, None, _stored_span(hc)
+        data, valid, span = dc.data, dc.valid, _stored_span(hc, nullable=True)
     else:
         c = torch_expr.compile_expr(g, scan_cols, n, device)
-        data, valid = c.data, c.valid
+        data, valid, span = c.data, c.valid, None
     data = torch.where(valid, data, torch.zeros((), dtype=data.dtype, device=device))
-    return data.expand(n).contiguous(), valid.expand(n)
+    return data.expand(n).contiguous(), valid.expand(n), span
 
 
 def _null_tags(valids, n, device):
-    """One int64 word a row: bit i set where key i is NULL."""
+    """One int64 word a row: bit i set where key i is NULL; and its span,
+    the bits up to the highest nullable key's."""
     tags = torch.zeros(n, dtype=torch.int64, device=device)
     for i, v in valids:
         tags |= (~v).to(torch.int64) << i
-    return tags
+    return tags, (0, 1 << (max(i for i, _v in valids) + 1), False)
 
 
 def _agg_stream(expr, scan, in_cols, scan_cols, n, device):
@@ -937,12 +939,13 @@ def _agg_stream(expr, scan, in_cols, scan_cols, n, device):
     return data.contiguous(), torch_expr.is_unsigned(c.stype)
 
 
-def _aggregate_inputs(calls, scan, in_cols, scan_cols, n, device):
+def _aggregate_inputs(calls, scan, in_cols, host_cols, scan_cols, n, device):
     """The kernel's value and count_distinct streams for ``calls``, pairs
-    of an aggregate call and the expression it reduces, and where each
-    call's result lies: ("count",), ("agg", j, is_float) or
-    ("distinct", j)."""
-    values, kinds, unsigned, distinct, where = [], [], [], [], []
+    of an aggregate call and the expression it reduces, the span of each
+    count_distinct payload (a stored column's: ``_stored_span``; else
+    None), and where each call's result lies: ("count",),
+    ("agg", j, is_float) or ("distinct", j)."""
+    values, kinds, unsigned, distinct, spans, where = [], [], [], [], [], []
     for a, subj in calls:
         kind = a.sfunction.aggregate.kind
         if kind == "count" or subj is None:
@@ -953,18 +956,49 @@ def _aggregate_inputs(calls, scan, in_cols, scan_cols, n, device):
         if kind == "count_distinct":
             where.append(("distinct", len(distinct)))
             distinct.append(stream)
+            idx = _stored_input(subj, scan)
+            stored = idx is not None and stream is in_cols[idx].data
+            spans.append(_stored_span(host_cols[idx]) if stored else None)
             continue
         where.append(("agg", len(values), stream.dtype == torch.float64))
         values.append(stream)
         kinds.append(kind)
         unsigned.append(uns)
-    return values, kinds, unsigned, distinct, where
+    return values, kinds, unsigned, distinct, spans, where
+
+
+# a span beyond this is no span: the direct tiers end far below it, and
+# its size and base stay 64-bit integers
+_MAX_SPAN = 1 << 62
+
+
+def _stored_span(c: Column, nullable: bool = False):
+    """``(base, span, unsigned)`` that every value of a stored column lies
+    in, from what the column cache already knows: a STRING's dictionary
+    size, a bool's two values, an integer column's min / max (cached by
+    ``_narrow_np_build`` over its data, NULL filler included); None where
+    nothing bounds it. ``nullable``: the route reads a NULL key as 0, so
+    the span is widened to cover 0."""
+    if c.stype == SType.STRING:
+        lo, hi = 0, max(1, len(c.dictionary)) - 1
+    elif c.stype == SType.BOOL:
+        lo, hi = 0, 1
+    elif c.stype in _INT_STYPES and getattr(c, "_stats_cache", None) is not None:
+        lo, hi = c._stats_cache
+    else:
+        return None
+    if nullable:
+        lo, hi = min(lo, 0), max(hi, 0)
+    if hi - lo + 1 > _MAX_SPAN:
+        return None
+    return (lo, hi - lo + 1, torch_expr.is_unsigned(c.stype))
 
 
 def _grouped_to_host(res, extra=()):
     """ONE device->host copy of a Grouped (and of ``extra`` int64[G]
     rows): (first rows, counts, aggregates, distinct counts, extra rows),
-    the groups in the order of their first rows."""
+    the groups in the order of their first rows; empty slots (count 0,
+    from the direct tiers) dropped."""
     from eventql_tpu_torch.kernels.sort import read_host
 
     rows = [res.first_index, res.counts, *extra]
@@ -972,8 +1006,8 @@ def _grouped_to_host(res, extra=()):
     rows += list(res.distinct)
     packed = read_host(torch.stack(rows)) if res.first_index.numel() else (
         np.zeros((len(rows), 0), np.int64))
-    order = np.argsort(packed[0], kind="stable")
-    packed = packed[:, order]
+    occupied = np.nonzero(packed[1] > 0)[0]
+    packed = packed[:, occupied[np.argsort(packed[0][occupied], kind="stable")]]
     ne = len(extra)
     na = len(res.aggregates)
     return (packed[0], packed[1], packed[2:2 + ne], packed[2 + ne:2 + ne + na],
@@ -1001,9 +1035,11 @@ def execute_device_groupby(node: qn.GroupByNode, txn) -> Optional[Relation]:
     plans that ``device_plan_eligible`` admits.
 
     The WHERE, the keys and the aggregate arguments evaluate in
-    torch_expr (plain stored columns go as they are); one
-    ``hash_groupby`` call groups and aggregates; only O(groups) leaves
-    the device, in one copy after the group count. Groups come in the
+    torch_expr (plain stored columns go as they are, with the spans the
+    column cache knows: ``_stored_span``); one ``hash_groupby`` call
+    groups and aggregates, in the tier those spans allow; only
+    O(groups) leaves the device, in one copy (after the group count in
+    the hash tier). Groups come in the
     order of their first rows (the host engine's), and entries that are
     not aggregates are evaluated by the host evaluator on those rows.
     Returns None on empty tables (the host path builds the typed empty
@@ -1048,18 +1084,21 @@ def execute_device_groupby(node: qn.GroupByNode, txn) -> Optional[Relation]:
             .data.expand(n)
             .contiguous()
         )
-    keys, valids = [], []
+    keys, valids, spans = [], [], []
     for i, g in enumerate(node.group_exprs):
-        data, valid = _group_key(g, scan, in_cols, host_cols, scan_cols, n, device)
+        data, valid, span = _group_key(g, scan, in_cols, host_cols, scan_cols, n, device)
         keys.append(data)
+        spans.append(span)
         if valid is not None:
             valids.append((i, valid))
     if valids:
-        keys.append(_null_tags(valids, n, device))
-    values, kinds, unsigned, distinct, where = _aggregate_inputs(
-        [(a, a.args[0] if a.args else None) for a in calls], scan, in_cols, scan_cols,
-        n, device)
-    res = hash_groupby(keys, n, mask, values, kinds, unsigned, distinct)
+        tags, span = _null_tags(valids, n, device)
+        keys.append(tags)
+        spans.append(span)
+    values, kinds, unsigned, distinct, dspans, where = _aggregate_inputs(
+        [(a, a.args[0] if a.args else None) for a in calls], scan, in_cols, host_cols,
+        scan_cols, n, device)
+    res = hash_groupby(keys, n, mask, values, kinds, unsigned, distinct, spans, dspans)
     first, counts, _extra, aggs, dist = _grouped_to_host(res)
     ng = len(first)
     agg_cols = _agg_columns(calls, where, counts, aggs, dist)
@@ -1789,9 +1828,10 @@ def try_execute_device_join_groupby(
 
 def _join_general(node, plan, gid, mask, in_cols, scan_cols, n, device):
     """The join route's general branch (float sums, min, max, mean,
-    count_distinct): the hash aggregate keyed by the probe's bucket over
-    the rows that found their dimension row and pass the fact-side
-    WHERE. Each group's first row is its smallest base row, which gives
+    count_distinct): the grouped aggregate keyed by the probe's bucket
+    (span [0, K): a direct tier) over the rows that found their
+    dimension row and pass the fact-side WHERE. Each group's first row
+    is its smallest base row, which gives
     the host engine's presentation order (an inner join on unique
     dimension keys pairs a fact row at most once)."""
     from eventql_tpu_torch.exec.vector_eval import EvalContext, evaluate_vector
@@ -1801,11 +1841,16 @@ def _join_general(node, plan, gid, mask, in_cols, scan_cols, n, device):
     keep = matched if mask is None else mask & matched
     all_aggs = plan["all_aggs"]
     calls = [a for a, _kind, _rsubj in all_aggs]
-    values, kinds, unsigned, distinct, where = _aggregate_inputs(
-        [(a, rsubj) for a, _kind, rsubj in all_aggs], plan["scan"], in_cols, scan_cols,
+    scan, table = plan["scan"], plan["table"]
+    by_name = dict(zip(table.names, table.columns))
+    host_cols = [by_name[cname] for cname, _t in scan.input_columns]
+    values, kinds, unsigned, distinct, dspans, where = _aggregate_inputs(
+        [(a, rsubj) for a, _kind, rsubj in all_aggs], scan, in_cols, host_cols, scan_cols,
         n, device)
-    res = hash_groupby([gid], n, keep, values, kinds, unsigned, distinct)
-    bucket = gid[res.first_index].to(torch.int64)
+    res = hash_groupby([gid], n, keep, values, kinds, unsigned, distinct,
+                       [(0, len(plan["firsts"]), False)], dspans)
+    # an empty slot's first row is no row: gather row 0 for it (dropped)
+    bucket = gid[torch.where(res.counts > 0, res.first_index, 0)].to(torch.int64)
     _first, counts, (buckets,), aggs, dist = _grouped_to_host(res, (bucket,))
     ng = len(counts)
     agg_cols = _agg_columns(calls, where, counts, aggs, dist)

@@ -67,7 +67,9 @@ def test_sql_route_on_the_card_equals_host_engine(cuda_device):
     assert run["e2e"]["join_big_dim"]["readbacks"] == 1
     for name in chip_smoke.GENERAL_SQL:
         assert per_query[name] == {"hash_groupby": 1}
-        assert run["e2e"][name]["readbacks"] == 2  # the group count, then the groups
+        # a direct tier: the slots come back in one copy
+        assert run["e2e"][name]["tier"] == chip_smoke.GENERAL_TIERS[name]
+        assert run["e2e"][name]["readbacks"] == 1
     assert per_query[chip_smoke.J1[0]] == {"dim_join_gid": 1, "hash_groupby": 1}
     assert run["launches_by_path"]["general_group_by"]["hash_groupby"] == 5 * 2
     # each recorded call, repeated: kernel and plain version agree
@@ -326,10 +328,12 @@ def test_cuda_tensor_without_library_raises(cuda_device, monkeypatch, tmp_path):
         hg.hash_groupby([keys], 16)
 
 
-@pytest.mark.parametrize("n", [1, 2, 33, 256, 257, 100_003])
+@pytest.mark.parametrize("n", [1, 2, 7, 8, 9, 33, 256, 257, 16383, 16385, 100_003])
 def test_hash_groupby_cases_at_every_size_on_the_card(cuda_device, n):
-    """The phase-3 cases of the hash aggregate at sizes around one block
-    and below one warp: kernel equal to its plain version."""
+    """The phase-3 cases of the hash aggregate, every tier among them, at
+    sizes around one run (8 rows), one block of the hash tier (256) and
+    of the direct tiers (16384) and below one warp: kernel equal to its
+    plain version."""
     import chip_smoke
     from eventql_tpu_torch.kernels import hash_groupby as hg
 
@@ -348,8 +352,9 @@ def test_hash_groupby_cases_at_every_size_on_the_card(cuda_device, n):
 
 def test_general_route_on_the_card_never_runs_the_plain_version(cuda_device, monkeypatch):
     """G1-G5 and J1 through Runtime(device="cuda") at 2^20 rows with the
-    plain grouped aggregation made to raise: the route runs the kernel
-    and nothing else, and its rows equal the host engine's."""
+    plain grouped aggregation made to raise: the route runs the kernel,
+    in the tier its spans choose, and nothing else, and its rows equal
+    the host engine's."""
     import chip_smoke
     from eventql_tpu_torch.exec import device_exec
     from eventql_tpu_torch.exec.runtime import Runtime
@@ -371,7 +376,53 @@ def test_general_route_on_the_card_never_runs_the_plain_version(cuda_device, mon
     for name, sql in [*chip_smoke.GENERAL_SQL.items(), chip_smoke.J1]:
         before = (device_exec.GENERAL_GROUPBY_COUNT + device_exec.JOIN_GROUPBY_COUNT,
                   hg.LAUNCHES["hash_groupby"])
+        forms = dict(hg.FORMS)
         got = chip_smoke.run_query(rt, provider, sql).rows
         assert (device_exec.GENERAL_GROUPBY_COUNT + device_exec.JOIN_GROUPBY_COUNT,
                 hg.LAUNCHES["hash_groupby"]) == (before[0] + 1, before[1] + 1), name
+        # at 2^20 rows G2's 2^20 slots (24 MB) pass what a direct tier may
+        # take (direct_limit: 12.6 MB): the hash tier
+        want = {"hash": 1} if name == "G2_key_beyond_k_cap" else chip_smoke.GENERAL_TIERS[name]
+        assert chip_smoke._forms_since(forms) == want, name
         assert got == chip_smoke.run_query(host, provider, sql).rows, name
+
+
+def test_hash_tier_rule_mirrors_the_launchers(cuda_device):
+    """evql_hash_tier and evql_hash_distinct_form on the card equal
+    tier_of and distinct_form at every boundary case."""
+    import chip_smoke
+    from eventql_tpu_torch.kernels import groupby_agg as ga
+    from eventql_tpu_torch.kernels import hash_groupby as hg
+
+    smem = ga.smem_optin(cuda_device)
+    for n in (100_003, 1_000_003):
+        for spans, nv, rows, tier in chip_smoke.tier_edges(smem, n):
+            assert hg.launcher_tier(spans, nv, rows, smem) == tier == hg.tier_of(
+                None if None in spans else [(0, s, False) for s in spans], nv, rows, smem)
+        for slots, span, rows, form in chip_smoke.distinct_edges(smem, n):
+            assert hg.launcher_distinct_form(slots, span, rows, smem) == form == (
+                hg.distinct_form(slots, None if span is None else (0, span, False), rows,
+                                 smem))
+
+
+@pytest.mark.parametrize("tier", ["shared", "global", "hash"])
+def test_hot_key_in_every_tier_on_the_card(cuda_device, tier):
+    """Every row on one key, in each tier (the span chooses it), at 2^20
+    rows: equal to the plain version, one group."""
+    import chip_smoke
+    from eventql_tpu_torch.kernels import hash_groupby as hg
+
+    n = 1 << 20
+    rng = np.random.default_rng(11)
+    label, kw = next((lab, kw) for lab, kw in chip_smoke.hash_cases(n, cuda_device, rng)
+                     if lab.startswith("shared tier"))
+    spans = {"shared": [(0, 1024, False)], "global": [(0, 40000, False)], "hash": None}[tier]
+    kw = dict(kw, keys=[torch.zeros(n, dtype=torch.int16, device=cuda_device)],
+              key_spans=spans, distinct_spans=None)
+    forms = dict(hg.FORMS)
+    got, want = hg.hash_groupby(**kw), hg.hash_groupby_plain(**kw)
+    torch.cuda.synchronize()
+    assert hg.FORMS[tier] - forms[tier] == 1
+    ok, err = chip_smoke.same_grouped(got, want)
+    assert ok, f"{tier}: max |diff| {err}"
+    assert hg.in_first_row_order(got).counts.tolist() == [int(kw["mask"][:n].sum())]
