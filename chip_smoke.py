@@ -41,14 +41,29 @@ Phases (any mismatch or exception ends the run with a non-zero code):
      the small-table probe also at D = 8192 and D = 1024 with u64 keys
      (beside the big-table probe and its global table's build at D =
      8192), its kernel's device time at one row (its table build), and
-     the library calls beside B1's other shapes.
+     the library calls beside B1's other shapes;
+  6. mesh paths: phase 4's table over MeshTableProvider(n_shards=4,
+     device="cuda"), four shards of 2^24 rows on the one card (several
+     shards on one device are the port's counterpart of the JAX package's
+     virtual CPU mesh; they run one after another, so the times measure
+     the tier's cost, not its scaling): phase 4's GROUP BY, general GROUP
+     BY, JOIN + GROUP BY and top-k queries, each equal to phase 4's numpy
+     answer (tolerance 0), its mesh route counter rising once a run, its
+     exchange at most 64 bytes a group (or distinct pair, or top-k
+     candidate) and shard; the full scan ORDER BY raising 'not ported';
+     distributed_sum_count, distributed_join_aggregate and
+     distributed_multi_join_aggregate at bench.py multijoin's shape (2^26
+     fact rows, 1024 and 256 dimension rows, 1024 buckets) equal to numpy;
+     each kernel's first call on the mesh path held against its plain
+     version; e2e ms of each query (CUDA events, median of 3) beside the
+     single-card route's, and the exchange bytes.
 
 With EVQL_PARENT_JOIN_CU naming an earlier join.cu whose
 evql_dim_join_gid has this one's C interface (the argument types
 kernels/join.py gives it), phase 2 builds it too and phase 5 holds its
 small-table probe against this one and times it on the same inputs.
 
-Prints one JSON line {"kernels": [...]} and, as the last line,
+Prints a JSON line {"mesh": ...}, one {"kernels": [...]} and, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -56,6 +71,7 @@ import ctypes
 import inspect
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -65,7 +81,8 @@ import numpy as np
 import torch
 
 from eventql_tpu_torch.core.types import SType
-from eventql_tpu_torch.exec import device_exec
+from eventql_tpu_torch.core.errors import RuntimeError_
+from eventql_tpu_torch.exec import device_exec, mesh_exec
 from eventql_tpu_torch.exec.relation import relation_from_numpy
 from eventql_tpu_torch.exec.runtime import (
     PlanCache,
@@ -78,6 +95,8 @@ from eventql_tpu_torch.kernels import groupby_agg as ga
 from eventql_tpu_torch.kernels import hash_groupby as hg
 from eventql_tpu_torch.kernels import join as kj
 from eventql_tpu_torch.kernels import sort as ksort
+from eventql_tpu_torch.parallel import distributed
+from eventql_tpu_torch.parallel.mesh_provider import MeshTableProvider
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
 # the float32 rate outside the tensor cores, taken as the rate of the
@@ -1454,6 +1473,8 @@ def phase_main_path(device, n, n_prefix, reps):
         calls={**{q: [c] for q, c in g_calls.items()}, **h_calls, **o_calls, **j_calls},
         resident=resident,
         peak_general=peak,
+        # what phase 6 runs again over the mesh
+        tables=dict(full=full, rt=rt, gqs=gqs, hqs=hqs, oqs=oqs, jqs=jqs),
     )
 
 
@@ -2082,6 +2103,260 @@ def phase_times(device, calls, parent=None):
     return out
 
 
+# -- phase 6: the mesh paths ----------------------------------------------------
+#
+# Phase 4's table over a mesh of MESH_SHARDS shards on the one card: bench.py
+# multijoin's rows per chip (2^24, bench.py:407) in each shard. Shards on one
+# device run one after another, so the mesh times measure what the tier costs
+# (per-shard launches, the exchange, the merge), not how it scales.
+
+MESH_SHARDS = 4
+MESH_REPS = 3  # timed runs of each query after a first, which loads the shards
+# the exchange of a mesh query: at most 8 words a group (or distinct pair,
+# or top-k candidate) and shard
+MESH_BYTES_PER_UNIT = 64
+# bench.py multijoin (bench.py:407-410): dimension tables of 1024 and 256 rows,
+# 1024 buckets, at phase 4's 2^26 fact rows
+MJ_DIM1, MJ_DIM2, MJ_BUCKETS = 1024, 256, 1024
+MJ_MULT1, MJ_ADD1, MJ_MULT2, MJ_ADD2 = 7919, 3, 104729, 11
+
+
+def _mesh_counters():
+    return (mesh_exec.MESH_GROUPBY_RUNS, mesh_exec.MESH_JOIN_RUNS, mesh_exec.MESH_TOPK_RUNS)
+
+
+def event_ms(fn):
+    """fn() between two CUDA events on the current stream, synchronised:
+    (its result, the milliseconds between the events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def mesh_queries(tables):
+    """(name, sql, route, check of the rows, exchange units) of every
+    phase 4 query over the mesh: route 0 GROUP BY, 1 JOIN + GROUP BY, 2
+    top-k, None the full ORDER BY (which must raise). The units bound the
+    exchange: groups, distinct pairs besides (their count is the sum of
+    the answer's count_distinct), or top-k candidates a shard."""
+    out = []
+    for name, sql, _kernel, _fused, expected in tables["gqs"]:
+        out.append((name, sql, 0, lambda rows, e=expected: sorted(rows) == e, len(expected)))
+    for name, sql, expected in tables["hqs"]:
+        units = len(expected)
+        if "count_distinct" in sql:
+            units += sum(int(r[1]) for r in expected)
+        out.append((name, sql, 0, lambda rows, e=expected: rows == e, units))
+    for name, sql, _per_run, expected in tables["jqs"]:
+        if expected is not None:
+            out.append((name, sql, 1, lambda rows, e=expected: rows == e, len(expected)))
+    for name, sql, route, _per_run, expected in tables["oqs"]:
+        limit = re.search(r"limit (\d+)(?: offset (\d+))?", sql)
+        window = sum(int(x) for x in limit.groups(0)) if limit else 0
+        out.append((name, sql, 2 if route == "topk" else None,
+                    lambda rows, e=expected: rows == e, window))
+    return out
+
+
+def multijoin_data(n, seed):
+    """bench.py multijoin's tables (bench.py:412-423) at n fact rows, with
+    each row's ordinal kept for the numpy answer: dim1 keys ordinal * 7919
+    + 3 in a random order with a bucket each, dim2 keys ordinal * 104729 +
+    11 with a 0/1 flag, fact keys drawn from both, values < 1000."""
+    rng = np.random.default_rng(seed)
+    d1_keys = rng.permutation(np.arange(MJ_DIM1, dtype=np.uint64) * MJ_MULT1 + MJ_ADD1)
+    d1_bucket = rng.integers(0, MJ_BUCKETS, MJ_DIM1).astype(np.int32)
+    d2_keys = rng.permutation(np.arange(MJ_DIM2, dtype=np.uint64) * MJ_MULT2 + MJ_ADD2)
+    d2_flag = rng.integers(0, 2, MJ_DIM2).astype(np.int32)
+    o1 = rng.integers(0, MJ_DIM1, n)
+    o2 = rng.integers(0, MJ_DIM2, n)
+    fv = rng.integers(0, 1000, n).astype(np.uint64)
+    bucket_of = np.empty(MJ_DIM1, np.int32)
+    bucket_of[(d1_keys - MJ_ADD1) // MJ_MULT1] = d1_bucket
+    flag_of = np.empty(MJ_DIM2, np.int32)
+    flag_of[(d2_keys - MJ_ADD2) // MJ_MULT2] = d2_flag
+    return dict(
+        d1_keys=d1_keys, d1_bucket=d1_bucket, d2_keys=d2_keys, d2_flag=d2_flag,
+        f_k1=o1.astype(np.uint64) * MJ_MULT1 + MJ_ADD1,
+        f_k2=o2.astype(np.uint64) * MJ_MULT2 + MJ_ADD2, fv=fv,
+        gid=bucket_of[o1], mask=fv < 800, active=flag_of[o2] == 1)
+
+
+def _sum_count_answer(gid, keep, fv):
+    counts = np.bincount(gid[keep], minlength=MJ_BUCKETS)
+    sums = np.bincount(gid[keep], weights=fv[keep].astype(np.float64), minlength=MJ_BUCKETS)
+    check(sums.max() < 2.0**53, "expected sum not exact in float64")
+    return [counts.astype(np.int64).tolist(), sums.astype(np.int64).tolist()]
+
+
+def kernel_tier(device, mesh, n, reps):
+    """distributed_sum_count, distributed_join_aggregate and
+    distributed_multi_join_aggregate at bench multijoin's shape, each
+    equal to numpy (tolerance 0) and timed (CUDA events, median of
+    ``reps``) with its exchange bytes."""
+    t0 = time.perf_counter()
+    d = multijoin_data(n, seed=31)
+    sc_args = distributed.shard_table(mesh, [d["mask"], d["gid"], d["fv"]])
+    fk1, fk2, fv, fm = distributed.shard_table(mesh, [d["f_k1"], d["f_k2"], d["fv"], d["mask"]])
+    d1k, d1b = distributed.shard_table(mesh, [d["d1_keys"], d["d1_bucket"]])
+    dim_keys = torch.from_numpy(d["d1_keys"].view(np.int64)).to(device)
+    dim_bucket = torch.from_numpy(d["d1_bucket"]).to(device)
+    d2k = torch.from_numpy(d["d2_keys"].view(np.int64)).to(device)
+    d2f = torch.from_numpy(d["d2_flag"]).to(device)
+    want = _sum_count_answer(d["gid"], d["mask"], d["fv"])
+    want_multi = _sum_count_answer(d["gid"], d["mask"] & d["active"], d["fv"])
+    log(f"phase 6: bench multijoin's tables at {n} rows made in"
+        f" {time.perf_counter() - t0:.1f} s")
+    calls = {
+        "distributed_sum_count": (
+            lambda: distributed.distributed_sum_count(mesh, *sc_args, MJ_BUCKETS), want),
+        "distributed_join_aggregate": (
+            lambda: distributed.distributed_join_aggregate(
+                mesh, fk1, fv, fm, dim_keys, dim_bucket, MJ_BUCKETS), want),
+        "distributed_multi_join_aggregate": (
+            lambda: distributed.distributed_multi_join_aggregate(
+                mesh, fk1, fk2, fv, fm, d1k, d1b, d2k, d2f, MJ_BUCKETS), want_multi),
+    }
+    out = {}
+    for name, (fn, expected) in calls.items():
+        with distributed.exchange_tally(mesh) as tally:
+            (counts, sums), _ms = event_ms(fn)
+        check([counts.tolist(), sums.tolist()] == expected,
+              f"{name}: counts or sums differ from the numpy answer")
+        moved = tally.by_op()
+        check(sum(moved.values()) <= MESH_BYTES_PER_UNIT * (MJ_BUCKETS + MJ_DIM1) * mesh.size,
+              f"{name}: exchange of {moved} bytes is not O(buckets)")
+        times = [event_ms(fn)[1] for _ in range(reps)]
+        out[name] = dict(ms=statistics.median(times), runs_ms=times, exchange_bytes=moved,
+                         rows=n, shards=mesh.size)
+        log(f"phase 6: {name}: {out[name]['ms']:.3f} ms (median of {reps}), exchange"
+            f" {moved} bytes, equal to numpy")
+    return out
+
+
+def phase_mesh(device, tables, reps):
+    """Phase 4's queries over MeshTableProvider(n_shards=MESH_SHARDS) on the
+    card, each answer equal to phase 4's numpy answer (tolerance 0), its
+    route counter rising once a run, its exchange O(groups * shards); the
+    full scan ORDER BY raising ``not ported``; then the kernel-tier
+    functions at bench multijoin's shape. The single-card route's time of
+    each query is taken first, by the same clock, outside the counted
+    window. Returns launches, per-query launches and times, the
+    kernel-tier results and one recorded call per kernel (the first the
+    mesh path made)."""
+    full, rt = tables["full"], tables["rt"]
+    n = full.get_table_data("t").num_rows
+    qs = mesh_queries(tables)
+    single = {}
+    for name, sql, route, _ok, _units in qs:
+        if route is not None:
+            run_query(rt, full, sql)  # warm
+            single[name] = statistics.median(
+                event_ms(lambda: run_query(rt, full, sql))[1] for _ in range(reps))
+
+    # the mesh routes run on the provider's shards whatever the Runtime's
+    # device; None sends a plan they decline to the host engine, so no
+    # single-card launch mixes into the mesh path's counts
+    mesh_rt = Runtime(device=None)
+    t0 = time.perf_counter()
+    provider = MeshTableProvider(n_shards=MESH_SHARDS, device="cuda")
+    for name in ("t", "d1", "d2"):
+        provider.add_table(name, full.get_table_data(name))
+    mesh = provider.mesh
+    check(mesh.devices == [device] * MESH_SHARDS or torch.cuda.device_count() > 1,
+          f"mesh devices {mesh.devices}")
+    per_query, first_calls = {}, {}
+    zero_launch_counts()
+    for name, sql, route, ok, units in qs:
+        if route is None:
+            try:
+                run_query(mesh_rt, provider, sql)
+            except RuntimeError_ as e:
+                check("not ported" in str(e) and "mesh ORDER BY" in str(e),
+                      f"{name}: raised {e}")
+            else:
+                check(False, f"{name}: a full scan ORDER BY over the mesh did not raise")
+            log(f"phase 6: {name}: full scan ORDER BY over the mesh raises 'not ported'")
+            continue
+        before, counters = launch_counts(), _mesh_counters()
+        # the first run, untimed, is the one whose kernel calls are
+        # recorded (the first of each kernel is kept) and whose exchange
+        # is tallied
+        with distributed.exchange_tally(mesh) as tally, _RecordedCalls() as rec:
+            res = run_query(mesh_rt, provider, sql)
+            torch.cuda.synchronize()
+        for kernel, kw in rec.calls:
+            first_calls.setdefault(kernel, (name, kw))
+        rec.calls.clear()
+        moved = tally.bytes()
+        check(ok(res.rows), f"{name}: mesh rows or their order differ from the numpy answer")
+        bound = MESH_BYTES_PER_UNIT * units * MESH_SHARDS
+        check(0 < moved <= bound, f"{name}: exchange of {moved} bytes > {bound}"
+              f" ({units} groups or candidates x {MESH_SHARDS} shards)")
+        # warm runs, timed as the single-card route was (no recorder):
+        # device bytes a run allocates beyond what is held (the columns
+        # of both providers and the recorded first calls)
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(reps):
+            res, ms = event_ms(lambda: run_query(mesh_rt, provider, sql))
+            times.append(ms)
+            check(ok(res.rows), f"{name}: mesh rows differ on a repeat")
+        peak = torch.cuda.max_memory_allocated() - held
+        runs = reps + 1
+        delta = [b - a for a, b in zip(counters, _mesh_counters())]
+        check(delta == [runs * (route == r) for r in range(3)],
+              f"{name}: mesh route counters {delta}")
+        after = launch_counts()
+        launched = {k: after[k] - before[k] for k in after}
+        check(all(c % runs == 0 for c in launched.values()),
+              f"{name}: launches {launched} differ between runs")
+        per_query[name] = dict(
+            mesh_ms=statistics.median(times), single_card_ms=single[name],
+            exchange_bytes=moved, exchange_units=units, held_bytes=held,
+            peak_bytes_beyond_held=peak,
+            launches={k: c // runs for k, c in launched.items() if c})
+        log(f"phase 6: {name}: mesh {per_query[name]['mesh_ms']:.3f} ms, single card"
+            f" {single[name]:.3f} ms (CUDA events, median of {reps}); exchange {moved}"
+            f" bytes ({units} units); launches a run {per_query[name]['launches']}")
+    log(f"phase 6: {len(per_query)} queries over {MESH_SHARDS} shards of"
+        f" {provider.padded_rows(n) // MESH_SHARDS} rows equal to numpy in"
+        f" {time.perf_counter() - t0:.1f} s")
+    tier = kernel_tier(device, mesh, n, reps)
+    launches = launch_counts()
+    for name in ("groupby_agg", "groupby_multi_agg", "extract_ge", "dim_join_gid",
+                 "probe_join_gid", "hash_groupby"):
+        check(launches[name] > 0, f"{name}: not launched on the mesh path")
+    log(f"phase 6: launches on the mesh path {launches}")
+    return dict(launches=launches, per_query=per_query, kernel_tier=tier,
+                first_calls=first_calls)
+
+
+def mesh_shapes(first_calls):
+    """Each kernel's first call on the mesh path (a shard's rows), held
+    against its plain version (tolerance 0) and timed."""
+    out = {}
+    for kernel, (query, kw) in first_calls.items():
+        label = f"mesh {query}"
+        if kernel == "extract_ge":
+            res = check_and_time_extract(label, kw, 5)
+        elif kernel == "hash_groupby":
+            res = check_and_time_hash(label, kw, 3)
+        elif kernel in ("dim_join_gid", "probe_join_gid"):
+            res = check_and_time_join(kernel, label, kw, 5)
+        else:
+            res = check_and_time(kernel, label, kw, 5)
+        out[kernel] = dict(query=query, **res)
+    log(f"phase 6: {len(out)} kernels' first mesh calls equal to their plain versions"
+        f" (tolerance 0)")
+    return out
+
+
 _REPLACES = {
     "hash_groupby": ("eventql_tpu_torch/kernels/csrc/hash_groupby.cu",
                      "eventql_tpu/kernels/groupby.py:246 (not a TPU kernel:"
@@ -2129,19 +2404,23 @@ def main():
     run = phase_main_path(device, N_ROWS, N_PREFIX_ROWS, REPS)
     times = phase_times(device, run["calls"], parent)
     context = _topk_context(device, run["calls"])
+    del run["calls"]
+    mesh_run = phase_mesh(device, run.pop("tables"), MESH_REPS)
+    shard_shapes = mesh_shapes(mesh_run.pop("first_calls"))
     kernels = []
     for name, t in times.items():
         source, replaces, entry = _REPLACES[name]
         check(run["launches"][name] > 0, f"{name}: not launched on a main path")
+        launches_by_path = {p: c[name] for p, c in run["launches_by_path"].items()}
+        launches_by_path["mesh"] = mesh_run["launches"][name]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": source,
             "entry": entry,
             "replaces": replaces,
-            "launches": run["launches"][name],
-            "launches_by_path": {p: c[name]
-                                 for p, c in run["launches_by_path"].items()},
+            "launches": run["launches"][name] + mesh_run["launches"][name],
+            "launches_by_path": launches_by_path,
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
@@ -2152,6 +2431,7 @@ def main():
             "shape": t["shape"],
             "bytes": t["bytes"],
             "other_shapes": t["other_shapes"],
+            "mesh_shape": shard_shapes.get(name),
         })
         # probe_join_gid: its table-build kernels alone; dim_join_gid: one
         # row (its table build) and the earlier kernel; hash_groupby: its
@@ -2167,6 +2447,9 @@ def main():
                     "device_bytes_held": run["resident"],
                     "peak_bytes_general_group_by": run["peak_general"],
                     "topk_context": context}))
+    log(json.dumps({"mesh": {"shards": MESH_SHARDS, "device": str(device),
+                             "queries": mesh_run["per_query"],
+                             "kernel_tier": mesh_run["kernel_tier"]}}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -1193,11 +1193,11 @@ _NARROW_BOUNDS = {
 }
 
 
-def _prep_device_scan_order(order_node: qn.OrderByNode, txn):
-    """Shared front half of the device ORDER BY routes: eligibility,
-    table fetch, scan/WHERE evaluation, host-order key construction.
-    Returns (scan, table, mask, keys, n) or None; mask is None when the
-    scan has no WHERE."""
+def _scan_order_analysis(order_node: qn.OrderByNode, txn):
+    """The host half of the device ORDER BY routes (and of the mesh's
+    top-k): eligibility, table fetch, the NULL rank of string keys and
+    the static bounds of the keys. Returns (scan, table, n, null_ranks,
+    bounds) or None."""
     import bisect
 
     scan = order_node.table
@@ -1281,11 +1281,13 @@ def _prep_device_scan_order(order_node: qn.OrderByNode, txn):
         if bounds[si] is not None and s.descending:
             lo, hi = bounds[si]
             bounds[si] = ((~hi) & _M64, (~lo) & _M64)
+    return scan, table, n, null_ranks, bounds
 
-    device = txn.device
-    in_cols = _to_device_cols(
-        table.columns, table.names, scan.input_columns, device
-    )
+
+def _scan_order_keys(scan, specs, in_cols, n, device, null_ranks, bounds):
+    """(mask, keys) of the device ORDER BY routes over ``in_cols`` (n
+    rows): the WHERE mask (None without a WHERE) and the host-order key
+    of each sort spec, a statically bounded one narrowed to 32 bits."""
     scan_cols = _LazyScanCols(scan, in_cols, n, device)
     mask = None
     if scan.where_expr is not None:
@@ -1308,6 +1310,25 @@ def _prep_device_scan_order(order_node: qn.OrderByNode, txn):
     for si, b in enumerate(bounds):
         if b is not None and b[1] - b[0] <= 0xFFFFFFFF:
             keys[si] = (keys[si] - torch_expr._fold_i64(b[0])).to(torch.int32)
+    return mask, keys
+
+
+def _prep_device_scan_order(order_node: qn.OrderByNode, txn):
+    """Shared front half of the device ORDER BY routes: eligibility,
+    table fetch, scan/WHERE evaluation, host-order key construction.
+    Returns (scan, table, mask, keys, n) or None; mask is None when the
+    scan has no WHERE."""
+    prep = _scan_order_analysis(order_node, txn)
+    if prep is None:
+        return None
+    scan, table, n, null_ranks, bounds = prep
+    device = txn.device
+    in_cols = _to_device_cols(
+        table.columns, table.names, scan.input_columns, device
+    )
+    mask, keys = _scan_order_keys(
+        scan, order_node.sort_specs, in_cols, n, device, null_ranks, bounds
+    )
     return scan, table, mask, keys, n
 
 
@@ -1696,6 +1717,41 @@ def _first_rows(gid, mask, lo: int, hi: int, K: int, n: int) -> torch.Tensor:
     return first.scatter_reduce_(0, g[rows].to(torch.int64), rows + lo, "amin")
 
 
+def _join_sum_tables(plan, gid, mask, in_cols, scan_cols, n, K, device):
+    """The join route's bounded aggregate: int64[1 + S, K], the count and
+    each of the S sums per bucket. Rows without a dimension match carry
+    gid -1, which lies outside [0, K), so the kernels drop them
+    themselves. Every sum has a stream of its own."""
+    scan = plan["scan"]
+    sums = [
+        _sum_stream(rsubj, scan, in_cols, scan_cols, n, device)
+        for _a, kind, rsubj in plan["all_aggs"]
+        if kind == "sum"
+    ]
+    if len(sums) <= 1:
+        v, bits, uns = sums[0] if sums else (None, 64, False)
+        return kernels.groupby_agg(
+            gid, n, K, values=v, value_bits=bits, mask=mask, values_unsigned=uns
+        )
+    if len(sums) <= kernels.MAX_SUMS:
+        return kernels.groupby_multi_agg(
+            gid, n, K, [s[0] for s in sums], [s[1] for s in sums], mask=mask,
+            streams_unsigned=[s[2] for s in sums],
+        )
+    # more sums than the kernel has streams: index_add_ on int64, as the
+    # GROUP BY route sends its leftover multi-sum shapes
+    wide = [
+        v.to(torch.int64) & ((1 << bits) - 1) if uns and bits < 64
+        else v.to(torch.int64)
+        for v, bits, uns in sums
+    ]
+    ones = torch.ones(n, dtype=torch.bool, device=device)
+    counts, outs = _index_add_aggregate(
+        ones if mask is None else mask, gid, wide, ["sum"] * len(wide), K
+    )
+    return torch.stack([counts, *outs])
+
+
 def try_execute_device_join_groupby(
     node: qn.GroupByNode, txn
 ) -> Optional[Relation]:
@@ -1749,37 +1805,7 @@ def try_execute_device_join_groupby(
     if not plan["bounded"]:
         return _join_general(node, plan, gid, mask, in_cols, scan_cols, n, device)
 
-    # the aggregate: rows without a dimension match carry gid -1, which
-    # lies outside [0, K), so the kernels drop them themselves. Every
-    # sum has a stream of its own.
-    sums = [
-        _sum_stream(rsubj, scan, in_cols, scan_cols, n, device)
-        for _a, kind, rsubj in all_aggs
-        if kind == "sum"
-    ]
-    if len(sums) <= 1:
-        v, bits, uns = sums[0] if sums else (None, 64, False)
-        out = kernels.groupby_agg(
-            gid, n, K, values=v, value_bits=bits, mask=mask, values_unsigned=uns
-        )
-    elif len(sums) <= kernels.MAX_SUMS:
-        out = kernels.groupby_multi_agg(
-            gid, n, K, [s[0] for s in sums], [s[1] for s in sums], mask=mask,
-            streams_unsigned=[s[2] for s in sums],
-        )
-    else:
-        # more sums than the kernel has streams: index_add_ on int64,
-        # as the GROUP BY route sends its leftover multi-sum shapes
-        wide = [
-            v.to(torch.int64) & ((1 << bits) - 1) if uns and bits < 64
-            else v.to(torch.int64)
-            for v, bits, uns in sums
-        ]
-        ones = torch.ones(n, dtype=torch.bool, device=device)
-        counts, outs = _index_add_aggregate(
-            ones if mask is None else mask, gid, wide, ["sum"] * len(wide), K
-        )
-        out = torch.stack([counts, *outs])
+    out = _join_sum_tables(plan, gid, mask, in_cols, scan_cols, n, K, device)
 
     # presentation order: the first surviving base row of each bucket
     # (an inner join on unique dim keys pairs a fact row at most once,

@@ -8,11 +8,12 @@ argsort. Semantics are bit-identical to the reference's row-at-a-time
 loops (see SURVEY.md Appendix A).
 
 This is the port's own copy of the host engine. It is the semantic
-reference of the CUDA routes (exec/device_exec.py: GROUP BY sum/count,
-fact-dim JOIN + GROUP BY sum/count, ORDER BY, ORDER BY ... LIMIT) and
-serves every plan the routes decline.
-Tiers that are not ported yet (partitioned, cluster and mesh providers,
-the general device GROUP BY, the query cache, charts, nested scans) raise
+reference of the CUDA routes (exec/device_exec.py: GROUP BY, fact-dim
+JOIN + GROUP BY, ORDER BY, ORDER BY ... LIMIT; exec/mesh_exec.py: the
+same over a table sharded on a mesh, but the full ORDER BY) and serves
+every plan the routes decline.
+Tiers that are not ported yet (partitioned and cluster providers, the
+mesh's full ORDER BY, the query cache, charts, nested scans) raise
 RuntimeError_ naming what is missing instead of being silently skipped.
 """
 
@@ -486,9 +487,239 @@ def _segment_aggregate(
 # ---------------------------------------------------------------------------
 
 
+@dataclass
+class GroupByPartial:
+    """One shard's partial aggregation: group keys + per-entry state
+    columns — the columnar analog of the reference's (sha1 key,
+    serialized accumulator states) rows (groupby.cc:438-472)."""
+
+    key_cols: List[Column]
+    n_groups: int
+    # per select entry: ("first", Column) or
+    # ("agg", emit_expr, [(kind, state_cols...)], agg_calls)
+    entries: List
+
+
+def _exec_group_by_local(node: qn.GroupByNode, table: Relation) -> GroupByPartial:
+    """Partial aggregation of one shard (PartialGroupByExpression)."""
+    child = _exec_seqscan_relation(node.table, table)
+    n = child.num_rows
+    ctx = EvalContext(child.columns, n)
+
+    key_cols_full = [evaluate_vector(e, ctx) for e in node.group_exprs]
+    keys = _group_key_matrix(key_cols_full, n)
+    gids, firsts = _factorize_rows(keys)
+    n_groups = len(firsts)
+
+    key_cols = [k.gather(firsts) for k in key_cols_full]
+
+    entries = []
+    for sl in node.select_list:
+        if has_aggregate_call(sl.expr):
+            agg_calls: List[CallExpressionNode] = []
+            emit_expr = _strip_aggregates(sl.expr, agg_calls)
+            states = []
+            for call in agg_calls:
+                kind = call.sfunction.aggregate.kind
+                if kind == "mean":
+                    # decompose into mergeable (sum, count)
+                    s = _segment_aggregate_kind(
+                        "sum", call, ctx, gids, n_groups, SType.FLOAT64
+                    )
+                    c = _segment_aggregate_kind(
+                        "count_rows", call, ctx, gids, n_groups, SType.UINT64
+                    )
+                    states.append(("mean", [s, c]))
+                elif kind == "count_distinct":
+                    arg = evaluate_vector(call.args[0], ctx)
+                    per_group = np.empty(n_groups, dtype=object)
+                    pairs = np.stack(
+                        [gids.astype(np.uint64), arg.data.astype(np.uint64)],
+                        axis=1,
+                    )
+                    uniq = np.unique(pairs, axis=0)
+                    for g in range(n_groups):
+                        per_group[g] = uniq[uniq[:, 0] == g][:, 1]
+                    states.append(("count_distinct", [per_group]))
+                else:
+                    col = _segment_aggregate(call, ctx, gids, n_groups)
+                    states.append((kind, [col]))
+            entries.append(("agg", emit_expr, states, agg_calls))
+        else:
+            full = evaluate_vector(sl.expr, ctx)
+            entries.append(("first", full.gather(firsts)))
+
+    return GroupByPartial(key_cols, n_groups, entries)
+
+
+def _segment_aggregate_kind(kind, call, ctx, gids, n_groups, rtype):
+    """Segment aggregation with an explicit kind/return type override."""
+    if kind in ("count", "count_rows"):
+        # "count_rows" (mean's denominator) always counts rows so the
+        # partial/merged mean equals the local mean (sum/len semantics)
+        pm = (
+            None
+            if kind == "count_rows"
+            else _count_presence_mask(_count_subject(call), ctx)
+        )
+        if pm is None:
+            data = np.bincount(gids, minlength=n_groups).astype(np.uint64)
+        else:
+            data = np.bincount(
+                gids, weights=pm.astype(np.float64), minlength=n_groups
+            ).astype(np.uint64)
+        return Column(SType.UINT64, data, np.ones(n_groups, bool))
+    arg = evaluate_vector(call.args[0], ctx)
+    out = np.zeros(n_groups, dtype=dtype_for(rtype))
+    np.add.at(out, gids, arg.data.astype(dtype_for(rtype)))
+    return Column(rtype, out, np.ones(n_groups, bool))
+
+
+def _merge_partials(
+    node: qn.GroupByNode, partials: List["GroupByPartial"]
+) -> Relation:
+    """Merge shard partials with the accumulator algebra of
+    VM::mergeInstance (reference: vm.cc:274-326; merge loop
+    groupby.cc:552-637)."""
+    nkeys = len(partials[0].key_cols)
+    total_groups = sum(p.n_groups for p in partials)
+    if total_groups == 0:
+        names = [sl.column_name() for sl in node.select_list]
+        return Relation(
+            names,
+            [
+                Column(
+                    sl.expr.return_type(),
+                    np.zeros(0, dtype=dtype_for(sl.expr.return_type())),
+                    np.zeros(0, bool),
+                    np.zeros(0, object)
+                    if sl.expr.return_type() == SType.STRING
+                    else None,
+                )
+                for sl in node.select_list
+            ],
+            0,
+        )
+
+    merged_keys = [
+        _concat_columns([p.key_cols[i] for p in partials]) for i in range(nkeys)
+    ]
+    keys = _group_key_matrix(merged_keys, total_groups)
+    gids, firsts = _factorize_rows(keys)
+    n_out = len(firsts)
+
+    out_cols: List[Column] = []
+    entry_count = len(partials[0].entries)
+    for e in range(entry_count):
+        kind0 = partials[0].entries[e][0]
+        if kind0 == "first":
+            col = _concat_columns([p.entries[e][1] for p in partials])
+            out_cols.append(col.gather(firsts))
+            continue
+
+        _tag, emit_expr, states0, agg_calls = partials[0].entries[e]
+        merged_agg_cols: List[Column] = []
+        for si, (skind, _cols0) in enumerate(states0):
+            shard_states = [p.entries[e][2][si] for p in partials]
+            if skind == "mean":
+                s = np.concatenate([st[1][0].data for st in shard_states])
+                c = np.concatenate([st[1][1].data for st in shard_states])
+                ms = np.zeros(n_out)
+                mc = np.zeros(n_out)
+                np.add.at(ms, gids, s)
+                np.add.at(mc, gids, c.astype(np.float64))
+                with np.errstate(invalid="ignore", divide="ignore"):
+                    out = ms / mc
+                merged_agg_cols.append(
+                    Column(SType.FLOAT64, out, np.ones(n_out, bool))
+                )
+            elif skind == "count_distinct":
+                per_group = np.empty(n_out, dtype=object)
+                for g in range(n_out):
+                    per_group[g] = np.zeros(0, np.uint64)
+                offset = 0
+                for p, st in zip(partials, shard_states):
+                    for g in range(p.n_groups):
+                        tgt = gids[offset + g]
+                        per_group[tgt] = np.union1d(per_group[tgt], st[1][0][g])
+                    offset += p.n_groups
+                data = np.array(
+                    [len(per_group[g]) for g in range(n_out)], dtype=np.uint64
+                )
+                merged_agg_cols.append(
+                    Column(SType.UINT64, data, np.ones(n_out, bool))
+                )
+            else:
+                vals = np.concatenate([st[1][0].data for st in shard_states])
+                dt = vals.dtype
+                if skind in ("sum", "count"):
+                    out = np.zeros(n_out, dtype=dt)
+                    np.add.at(out, gids, vals)
+                elif skind in ("min", "max"):
+                    if np.issubdtype(dt, np.floating):
+                        init = np.inf if skind == "min" else -np.inf
+                    else:
+                        info = np.iinfo(dt)
+                        init = info.max if skind == "min" else info.min
+                    out = np.full(n_out, init, dtype=dt)
+                    (np.minimum if skind == "min" else np.maximum).at(
+                        out, gids, vals
+                    )
+                else:
+                    raise RuntimeError_(f"unmergeable aggregate: {skind}")
+                stype = (
+                    SType.UINT64
+                    if skind == "count"
+                    else agg_calls[si].sfunction.return_type
+                )
+                merged_agg_cols.append(
+                    Column(stype, out, np.ones(n_out, bool))
+                )
+
+        emit_ctx = EvalContext(merged_agg_cols, n_out)
+        out_cols.append(evaluate_vector(emit_expr, emit_ctx))
+
+    names = [sl.column_name() for sl in node.select_list]
+    return Relation(names, out_cols, n_out)
+
+
+def _concat_columns(cols: List[Column]) -> Column:
+    """Row-wise concatenation of same-typed columns (strings re-encoded
+    into one dictionary). The port's copy of
+    eventql_tpu/parallel/partitioned.py:_concat_columns."""
+    stype = cols[0].stype
+    if stype == SType.STRING:
+        vals = []
+        for c in cols:
+            strs = c.materialize_strings()
+            for i in range(len(c.data)):
+                vals.append(bytes(strs[i]) if c.valid[i] else None)
+        return Column.from_strings(vals)
+    data = np.concatenate([c.data for c in cols])
+    valid = np.concatenate([c.valid for c in cols])
+    return Column(stype, data, valid)
+
+
 def _exec_group_by(node: qn.GroupByNode, txn) -> Relation:
     if getattr(txn, "query_cache", None) is not None:
         raise _not_ported("query cache (exec.query_cache)")
+
+    if _on_mesh(txn):
+        # the mesh tier: per-shard partial aggregation and an exchange of
+        # accumulator tables (exec/mesh_exec.py); None -> shape not
+        # mesh-routable, the routes below or the host engine serve it
+        from eventql_tpu_torch.exec.mesh_exec import (
+            try_execute_mesh_groupby,
+            try_execute_mesh_join_groupby,
+        )
+
+        if isinstance(node.table, qn.JoinNode):
+            result = try_execute_mesh_join_groupby(node, txn)
+            if result is not None:
+                return result
+        result = try_execute_mesh_groupby(node, txn)
+        if result is not None:
+            return result
 
     if getattr(txn, "device", None) is not None:
         # the CUDA routes, in the JAX package's order: the bounded string
@@ -590,7 +821,21 @@ def _exec_having(node: qn.HavingNode, txn) -> Relation:
     return child.gather(np.nonzero(keep)[0])
 
 
+def _on_mesh(txn) -> bool:
+    from eventql_tpu_torch.parallel.mesh_provider import MeshTableProvider
+
+    return isinstance(txn.tables, MeshTableProvider)
+
+
 def _exec_order_by(node: qn.OrderByNode, txn) -> Relation:
+    if _on_mesh(txn) and isinstance(node.table, qn.SequentialScanNode):
+        from eventql_tpu_torch.exec.mesh_exec import mesh_order_served
+
+        if mesh_order_served(node, txn):
+            # the JAX mesh tier sorts this over the mesh; nothing here
+            # falls to the host quietly in its place
+            raise _not_ported("mesh ORDER BY (distributed_bucket_sort / distributed_sort)")
+
     if getattr(txn, "device", None) is not None and isinstance(
         node.table, qn.SequentialScanNode
     ):
@@ -637,6 +882,14 @@ def _order_relation(child: Relation, sort_specs) -> Relation:
 
 
 def _exec_limit(node: qn.LimitNode, txn) -> Relation:
+    if _on_mesh(txn) and isinstance(node.table, qn.OrderByNode):
+        # the mesh top-k: O(k) candidates a shard; None -> not routable
+        from eventql_tpu_torch.exec.mesh_exec import try_execute_mesh_scan_topk
+
+        result = try_execute_mesh_scan_topk(node, txn)
+        if result is not None:
+            return result
+
     if getattr(txn, "device", None) is not None and isinstance(
         node.table, qn.OrderByNode
     ):

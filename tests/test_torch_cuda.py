@@ -426,3 +426,97 @@ def test_hot_key_in_every_tier_on_the_card(cuda_device, tier):
     ok, err = chip_smoke.same_grouped(got, want)
     assert ok, f"{tier}: max |diff| {err}"
     assert hg.in_first_row_order(got).counts.tolist() == [int(kw["mask"][:n].sum())]
+
+
+def _mesh_tables(n):
+    import chip_smoke
+
+    cols, dictionary = chip_smoke.make_table(n, seed=42)
+    dims = chip_smoke.make_dims(seed=43)
+    full = chip_smoke.add_dims(chip_smoke.provider_of(cols, dictionary, n), dims)
+    return full, dict(full=full, gqs=chip_smoke.queries(cols, dictionary),
+                      hqs=chip_smoke.general_queries(cols, dictionary, n),
+                      oqs=chip_smoke.order_queries(cols, dictionary, n),
+                      jqs=chip_smoke.join_queries(cols, dims, n))
+
+
+def test_mesh_routes_on_the_card_equal_the_cpu_mesh(cuda_device, monkeypatch):
+    """chip_smoke.py phase 6's queries at 2^20 rows over 4 shards on the
+    card and over 4 shards on the CPU (the plain versions): the same rows,
+    equal to numpy; every mesh route ran, the card's through the kernels
+    alone; the full scan ORDER BY raises on both."""
+    import chip_smoke
+    from eventql_tpu_torch.core.errors import RuntimeError_
+    from eventql_tpu_torch.exec import mesh_exec
+    from eventql_tpu_torch.exec.runtime import Runtime
+    from eventql_tpu_torch.kernels import hash_groupby
+    from eventql_tpu_torch.parallel.mesh_provider import MeshTableProvider
+
+    full, tables = _mesh_tables(1 << 20)
+    meshes = {}
+    for device in ("cuda", "cpu"):
+        p = MeshTableProvider(n_shards=4, device=device)
+        for name in ("t", "d1", "d2"):
+            p.add_table(name, full.get_table_data(name))
+        meshes[device] = p
+    rt = Runtime(device=None)
+    plain = hash_groupby.hash_groupby_plain
+
+    def no_plain_on_the_card(keys, *a, **kw):
+        assert not any(k.is_cuda for k in keys), "the plain version ran on the card"
+        return plain(keys, *a, **kw)
+
+    monkeypatch.setattr(hash_groupby, "hash_groupby_plain", no_plain_on_the_card)
+    before = chip_smoke.launch_counts()
+    for name, sql, route, ok, _units in chip_smoke.mesh_queries(tables):
+        rows = {}
+        for device, p in meshes.items():
+            counters = chip_smoke._mesh_counters()
+            if route is None:
+                with pytest.raises(RuntimeError_, match="not ported.*mesh ORDER BY"):
+                    chip_smoke.run_query(rt, p, sql)
+                continue
+            rows[device] = chip_smoke.run_query(rt, p, sql).rows
+            delta = [b - a for a, b in zip(counters, chip_smoke._mesh_counters())]
+            assert delta == [int(route == r) for r in range(3)], (name, device)
+        if route is not None:
+            assert rows["cuda"] == rows["cpu"], name
+            assert ok(rows["cuda"]), name
+    after = chip_smoke.launch_counts()
+    for kernel in ("groupby_agg", "groupby_multi_agg", "dim_join_gid", "probe_join_gid",
+                   "hash_groupby"):
+        assert after[kernel] > before[kernel], kernel
+    assert mesh_exec.MESH_TOPK_RUNS > 0
+
+
+def test_distributed_functions_on_the_card(cuda_device):
+    """The kernel-tier functions at 2^20 rows over 4 shards on the card:
+    equal to the same over 4 CPU shards and to numpy."""
+    import chip_smoke
+    from eventql_tpu_torch.parallel import distributed
+
+    n = 1 << 20
+    d = chip_smoke.multijoin_data(n, seed=5)
+    want = chip_smoke._sum_count_answer(d["gid"], d["mask"], d["fv"])
+    want_multi = chip_smoke._sum_count_answer(d["gid"], d["mask"] & d["active"], d["fv"])
+    for device in ("cuda", "cpu"):
+        mesh = distributed.make_mesh(4, device)
+        dev = mesh.root
+        fk1, fk2, fv, fm = distributed.shard_table(
+            mesh, [d["f_k1"], d["f_k2"], d["fv"], d["mask"]])
+        d1k, d1b = distributed.shard_table(mesh, [d["d1_keys"], d["d1_bucket"]])
+        dk = torch.from_numpy(d["d1_keys"].view(np.int64)).to(dev)
+        db = torch.from_numpy(d["d1_bucket"]).to(dev)
+        got = distributed.distributed_sum_count(
+            mesh, *distributed.shard_table(mesh, [d["mask"], d["gid"], d["fv"]]),
+            chip_smoke.MJ_BUCKETS)
+        assert [t.tolist() for t in got] == want, device
+        for probe in (None, "compare", "search"):
+            got = distributed.distributed_join_aggregate(
+                mesh, fk1, fv, fm, dk, db, chip_smoke.MJ_BUCKETS, probe=probe)
+            assert [t.tolist() for t in got] == want, (device, probe)
+        got = distributed.distributed_multi_join_aggregate(
+            mesh, fk1, fk2, fv, fm, d1k, d1b,
+            torch.from_numpy(d["d2_keys"].view(np.int64)).to(dev),
+            torch.from_numpy(d["d2_flag"]).to(dev), chip_smoke.MJ_BUCKETS)
+        assert [t.tolist() for t in got] == want_multi, device

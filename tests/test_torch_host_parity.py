@@ -187,6 +187,44 @@ def test_join_route_agrees_with_the_jax_host_engine(query):
     assert device_exec.JOIN_GROUPBY_COUNT - before == 1
 
 
+PARTIAL_QUERIES = [
+    "select city, count(1), sum(value), min(temp), max(delta), mean(temp) from ev"
+    " group by city;",
+    "select user_id, count_distinct(value), sum(delta) from ev where value < 800"
+    " group by user_id;",
+    "select flag, city, count(value), mean(value), truncate(value / 100) from ev"
+    " group by flag, city;",
+    "select sum(value), count(1) from ev where delta > 40;",
+]
+
+
+@pytest.mark.parametrize("query", PARTIAL_QUERIES)
+def test_partial_aggregation_agrees(query):
+    """The copied partial aggregation (operators.GroupByPartial,
+    _exec_group_by_local, _merge_partials, _concat_columns): each third
+    of the table aggregated alone, the partials merged; the same as the
+    JAX package's, column for column, and as the whole table's GROUP BY."""
+    from eventql_tpu.exec import operators as jax_ops
+    from eventql_tpu_torch.exec import operators as ops
+    from eventql_tpu_torch.plan import nodes as tqn
+
+    pj, pt = _providers()
+    rj, rt = Runtime(), TorchRuntime(device=None)
+    jnode = rj.build_query_plan(rj.new_transaction(pj), query).nodes[0]
+    tnode = rt.build_query_plan(rt.new_transaction(pt), query).nodes[0]
+    assert isinstance(tnode, tqn.GroupByNode)
+    jrel, trel = pj.get_table_data("ev"), pt.get_table_data("ev")
+    thirds = np.array_split(np.arange(jrel.num_rows), 3)
+    want = jax_ops._merge_partials(
+        jnode, [jax_ops._exec_group_by_local(jnode, jrel.gather(i)) for i in thirds])
+    got = ops._merge_partials(
+        tnode, [ops._exec_group_by_local(tnode, trel.gather(i)) for i in thirds])
+    assert got.names == want.names
+    assert [c.format_all() for c in got.columns] == [c.format_all() for c in want.columns]
+    whole = rt.execute_query(rt.new_transaction(pt), query)[0]
+    assert [list(r) for r in zip(*[c.format_all() for c in got.columns])] == whole.rows
+
+
 ERRORS = [
     "select fnord from ev;",
     "select * from nosuchtable;",

@@ -84,6 +84,43 @@ assert [[int(x) for x in r[1:]] for r in res.rows] == [
     for i in range(4)], res.rows
 assert device_exec.GENERAL_GROUPBY_COUNT == 1
 
+# the mesh tier on 4 CPU shards: GROUP BY, JOIN + GROUP BY, top-k and a
+# kernel-tier aggregate, each equal to the host engine / numpy
+from eventql_tpu_torch.exec import mesh_exec
+from eventql_tpu_torch.parallel import distributed
+from eventql_tpu_torch.parallel.mesh_provider import MeshTableProvider
+
+mp = MeshTableProvider(n_shards=4, device="cpu")
+for name in ("t", "d"):
+    mp.add_table(name, p.get_table_data(name))
+host_rt = Runtime(device=None)
+for q in ("select k, count(1), sum(v), min(v), count_distinct(v) from t group by k;",
+          "select d.g, count(1), sum(t.v) from t join d on t.v = d.k group by d.g;",
+          "select k, v from t where v < 900 order by v desc limit 7;"):
+    got = host_rt.build_query_plan(host_rt.new_transaction(mp), q).execute(0).rows
+    want = host_rt.build_query_plan(host_rt.new_transaction(p), q).execute(0).rows
+    assert got == want, (q, got, want)
+assert (mesh_exec.MESH_GROUPBY_RUNS, mesh_exec.MESH_JOIN_RUNS,
+        mesh_exec.MESH_TOPK_RUNS) == (1, 1, 1)
+mesh = distributed.make_mesh(4, "cpu")
+gid = (k % 3).astype(np.int32)
+counts, sums = distributed.distributed_sum_count(
+    mesh, *distributed.shard_table(mesh, [v < 800, gid, v]), 3)
+assert counts.tolist() == np.bincount(gid[v < 800], minlength=3).tolist()
+assert sums.tolist() == [int(v[(v < 800) & (gid == g)].sum()) for g in range(3)]
+try:
+    distributed.make_mesh(2, "cuda")
+except RuntimeError_ as e:
+    assert "CUDA" in str(e)
+else:
+    raise AssertionError("make_mesh(device='cuda') did not raise without a GPU")
+try:
+    MeshTableProvider(n_shards=2)
+except RuntimeError_ as e:
+    assert "CUDA" in str(e)
+else:
+    raise AssertionError("MeshTableProvider() did not raise without a GPU")
+
 bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
        or m == "jaxlib" or m == "eventql_tpu" or m.startswith("eventql_tpu.")]
 assert not bad, bad
