@@ -47,16 +47,25 @@ Phases (any mismatch or exception ends the run with a non-zero code):
      shards on one device are the port's counterpart of the JAX package's
      virtual CPU mesh; they run one after another, so the times measure
      the tier's cost, not its scaling): phase 4's GROUP BY, general GROUP
-     BY, JOIN + GROUP BY and top-k queries, each equal to phase 4's numpy
-     answer (tolerance 0), its mesh route counter rising once a run, its
-     exchange at most 64 bytes a group (or distinct pair, or top-k
-     candidate) and shard; the full scan ORDER BY raising 'not ported';
-     distributed_sum_count, distributed_join_aggregate and
-     distributed_multi_join_aggregate at bench.py multijoin's shape (2^26
-     fact rows, 1024 and 256 dimension rows, 1024 buckets) equal to numpy;
-     each kernel's first call on the mesh path held against its plain
-     version; e2e ms of each query (CUDA events, median of 3) beside the
-     single-card route's, and the exchange bytes.
+     BY, JOIN + GROUP BY, top-k and full ORDER BY queries, and three more
+     full ORDER BYs (three keys packed into one u64: the sample sort; an
+     unbounded second key: the compare-split; on a table of 2^18 rows of
+     its own, a bucket that overflows and a passing key equal to the
+     sentinel: the compare-split after the sample sort gave up), each
+     equal to a numpy answer (tolerance 0), its mesh route counter rising
+     once a run (a full ORDER BY's also naming its sort), its exchange at
+     most 64 bytes a group (or distinct pair, or top-k candidate) and
+     shard, or 128 bytes a row for a full ORDER BY; at bench.py
+     multijoin's shape (2^26 fact rows, 1024 and 256 dimension rows, 1024
+     buckets) distributed_sum_count, distributed_join_aggregate,
+     distributed_multi_join_aggregate, distributed_sort,
+     distributed_order_permutation, distributed_bucket_sort,
+     distributed_topk, distributed_grouped_aggregate,
+     distributed_count_distinct and distributed_grouped_aggregate_sharded
+     equal to numpy, with their exchange bytes by op; each kernel's first
+     call on the mesh path held against its plain version; e2e ms of each
+     query (CUDA events, median of 3) beside the single-card route's, and
+     the exchange bytes.
 
 With EVQL_PARENT_JOIN_CU naming an earlier join.cu whose
 evql_dim_join_gid has this one's C interface (the argument types
@@ -81,7 +90,6 @@ import numpy as np
 import torch
 
 from eventql_tpu_torch.core.types import SType
-from eventql_tpu_torch.core.errors import RuntimeError_
 from eventql_tpu_torch.exec import device_exec, mesh_exec
 from eventql_tpu_torch.exec.relation import relation_from_numpy
 from eventql_tpu_torch.exec.runtime import (
@@ -1474,7 +1482,8 @@ def phase_main_path(device, n, n_prefix, reps):
         resident=resident,
         peak_general=peak,
         # what phase 6 runs again over the mesh
-        tables=dict(full=full, rt=rt, gqs=gqs, hqs=hqs, oqs=oqs, jqs=jqs),
+        tables=dict(full=full, rt=rt, gqs=gqs, hqs=hqs, oqs=oqs, jqs=jqs, cols=cols,
+                    dictionary=dictionary),
     )
 
 
@@ -1826,6 +1835,22 @@ def b1_library_ms(kw):
                         " shifted by one beforehand)")
 
 
+def b2_library_ms(kw):
+    """One library call beside a recorded groupby_multi_agg call:
+    index_add_ of its summed streams as int64 [n, S] at the buckets,
+    shifted as in ``b1_library_ms``. It neither filters nor counts."""
+    n, K = kw["n"], kw["num_buckets"]
+    key = _as_int64(kw["gid"][:n], kw.get("gid_unsigned", False)) - kw.get("gid_base", 0)
+    idx = torch.where((key >= 0) & (key < K), key + 1, 0)
+    del key
+    uns = kw.get("streams_unsigned") or (False,) * len(kw["streams"])
+    vals = torch.stack([_as_int64(t[:n], u) for t, u in zip(kw["streams"], uns)], dim=1)
+    lib = torch.zeros((K + 1, vals.shape[1]), dtype=torch.int64, device=idx.device)
+    return dict(library_ms=cuda_ms(lambda: lib.index_add_(0, idx, vals), 5, warmup=1),
+                library="torch.Tensor.index_add_ (int64 [n, S], sums only, no filter;"
+                        " buckets shifted by one beforehand)")
+
+
 def _hash_streams(kw):
     """(role, tensor) of every stream a recorded hash_groupby call reads,
     each tensor once."""
@@ -2121,8 +2146,34 @@ MJ_DIM1, MJ_DIM2, MJ_BUCKETS = 1024, 256, 1024
 MJ_MULT1, MJ_ADD1, MJ_MULT2, MJ_ADD2 = 7919, 3, 104729, 11
 
 
+# a table of its own for the full ORDER BY's fallbacks: 2^16 rows a shard
+MESH_SMALL_ROWS = MESH_SHARDS << 16
+MESH_SMALL_PASS = 40_000  # rows r < 40 000, all in shard 0: > its bucket capacity 2^15
+# a full ORDER BY's exchange: the sample sort moves each table row's key
+# and row id (16 bytes) at most twice over (buckets of twice a shard's
+# share), and a few words for its decision
+SAMPLE_SORT_BYTES_PER_ROW = 32
+ORDER_DECISION_BYTES = 4096
+
+
+def order_exchange_bound(rows, sample_sort, longest=0, n_keys=0):
+    """The most bytes a full ORDER BY over the mesh may exchange: the
+    sample sort of the table's ``rows`` where it is tried, and the
+    compare-split where it serves, each of whose stages moves every
+    shard's run of ``longest`` rows (the most passing rows of a shard)
+    as a padding byte and 8 bytes for each of ``n_keys`` keys and the
+    row id."""
+    b = MESH_SHARDS.bit_length() - 1
+    stages = b * (b + 1) // 2
+    tried = SAMPLE_SORT_BYTES_PER_ROW * rows + ORDER_DECISION_BYTES if sample_sort else 0
+    return tried + stages * MESH_SHARDS * longest * (1 + 8 * (n_keys + 1))
+
+
 def _mesh_counters():
-    return (mesh_exec.MESH_GROUPBY_RUNS, mesh_exec.MESH_JOIN_RUNS, mesh_exec.MESH_TOPK_RUNS)
+    """The mesh routes' counters: GROUP BY, JOIN + GROUP BY, top-k, full
+    ORDER BY (either sort), and the full ORDER BYs the sample sort served."""
+    return (mesh_exec.MESH_GROUPBY_RUNS, mesh_exec.MESH_JOIN_RUNS, mesh_exec.MESH_TOPK_RUNS,
+            mesh_exec.MESH_ORDER_RUNS, mesh_exec.MESH_BUCKET_SORT_RUNS)
 
 
 def event_ms(fn):
@@ -2137,28 +2188,98 @@ def event_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def small_order_table(seed):
+    """Table ``o`` (MESH_SMALL_ROWS rows): ``r`` the row id, ``c`` one
+    value on every row, ``u`` random u64 with the u64 max on 1 % of the
+    rows; and the full ORDER BY queries on it that the sample sort cannot
+    serve exactly: (name, sql, sample sort?, expected rows, bound on the
+    bytes exchanged: the sample sort tried, then the compare-split of
+    the MESH_SMALL_PASS rows, all in shard 0)."""
+    rng = np.random.default_rng(seed)
+    n = MESH_SMALL_ROWS
+    r = np.arange(n, dtype=np.uint64)
+    u = rng.integers(0, 1 << 40, n, dtype=np.uint64)
+    u[rng.random(n) < 0.01] = np.uint64((1 << 64) - 1)
+    ones = np.ones(n, bool)
+    rel = relation_from_numpy(
+        ["r", "c", "u"], [(SType.UINT64, r, ones, None),
+                          (SType.UINT64, np.full(n, 42, np.uint64), ones, None),
+                          (SType.UINT64, u, ones, None)])
+    m = MESH_SMALL_PASS
+    order = np.argsort(u[:m], kind="stable")
+    bound = order_exchange_bound(n, True, m, 1)
+    return rel, [
+        ("order_overflow", f"select r, c from o where r < {m} order by c;", False,
+         [[str(i), "42"] for i in range(m)], bound),
+        ("order_sentinel_key", f"select r, u from o where r < {m} order by u;", False,
+         [[str(i), str(int(u[i]))] for i in order], bound),
+    ]
+
+
+def mesh_order_queries(c, dictionary):
+    """Full ORDER BY queries over the mesh beyond phase 4's: (name, sql,
+    sample sort?, expected rows, bound on the bytes exchanged). Three bounded keys whose widths sum to
+    59 bits (the string rank 11, ``v`` as u16 16, ``w`` as u32 32) pack
+    into one u64 and take the sample sort; an unbounded second key
+    (``ts``) takes the compare-split."""
+    names = [d.decode() for d in dictionary]
+    k, v, w, ts = c["k"], c["v"], c["w"], c["ts"]
+    keep = (v < 10) & (w < 65536)
+    n_keep = int(keep.sum())
+    longest = int(keep.reshape(MESH_SHARDS, -1).sum(axis=1).max())
+
+    def rows(idx, *cols):
+        return [[names[int(x[i])] if x is k else str(int(x[i])) for x in cols] for i in idx]
+
+    return [
+        ("order_packed_three_keys",
+         "select k, v, w from t where v < 10 and w < 65536 order by k desc, v, w;", True,
+         rows(_first_rows([N_KEYS - 1 - k, v, w], keep, n_keep), k, v, w),
+         order_exchange_bound(len(k), True)),
+        ("order_v_desc_ts",
+         "select ts, v from t where v < 10 and w < 65536 order by v desc, ts;", False,
+         rows(_first_rows([np.uint64(999) - v, ts], keep, n_keep), ts, v),
+         order_exchange_bound(len(k), False, longest, 2)),
+    ]
+
+
 def mesh_queries(tables):
-    """(name, sql, route, check of the rows, exchange units) of every
-    phase 4 query over the mesh: route 0 GROUP BY, 1 JOIN + GROUP BY, 2
-    top-k, None the full ORDER BY (which must raise). The units bound the
-    exchange: groups, distinct pairs besides (their count is the sum of
-    the answer's count_distinct), or top-k candidates a shard."""
+    """(name, sql, route, check of the rows, bound on the bytes
+    exchanged) of every phase 4 query over the mesh and of the full
+    ORDER BYs of phase 6: route 0 GROUP BY, 1 JOIN + GROUP BY, 2 top-k,
+    3 the full ORDER BY through the sample sort, 4 through the
+    compare-split. The bound of the first three is MESH_BYTES_PER_UNIT a
+    unit and shard, the units being groups, distinct pairs besides (their
+    count is the sum of the answer's count_distinct) or top-k candidates
+    a shard; a full ORDER BY's is ``order_exchange_bound``."""
     out = []
+
+    def per_unit(units):
+        return MESH_BYTES_PER_UNIT * units * MESH_SHARDS
+
     for name, sql, _kernel, _fused, expected in tables["gqs"]:
-        out.append((name, sql, 0, lambda rows, e=expected: sorted(rows) == e, len(expected)))
+        out.append((name, sql, 0, lambda rows, e=expected: sorted(rows) == e,
+                    per_unit(len(expected))))
     for name, sql, expected in tables["hqs"]:
         units = len(expected)
         if "count_distinct" in sql:
             units += sum(int(r[1]) for r in expected)
-        out.append((name, sql, 0, lambda rows, e=expected: rows == e, units))
+        out.append((name, sql, 0, lambda rows, e=expected: rows == e, per_unit(units)))
     for name, sql, _per_run, expected in tables["jqs"]:
         if expected is not None:
-            out.append((name, sql, 1, lambda rows, e=expected: rows == e, len(expected)))
+            out.append((name, sql, 1, lambda rows, e=expected: rows == e,
+                        per_unit(len(expected))))
+    n_p = tables["full"].get_table_data("t").num_rows
     for name, sql, route, _per_run, expected in tables["oqs"]:
-        limit = re.search(r"limit (\d+)(?: offset (\d+))?", sql)
-        window = sum(int(x) for x in limit.groups(0)) if limit else 0
-        out.append((name, sql, 2 if route == "topk" else None,
-                    lambda rows, e=expected: rows == e, window))
+        if route == "topk":
+            limit = re.search(r"limit (\d+)(?: offset (\d+))?", sql)
+            out.append((name, sql, 2, lambda rows, e=expected: rows == e,
+                        per_unit(sum(int(x) for x in limit.groups(0)))))
+        else:
+            out.append((name, sql, 3, lambda rows, e=expected: rows == e,
+                        order_exchange_bound(n_p, True)))
+    for name, sql, bucket, expected, bound in tables["mesh_oqs"]:
+        out.append((name, sql, 3 if bucket else 4, lambda rows, e=expected: rows == e, bound))
     return out
 
 
@@ -2193,11 +2314,46 @@ def _sum_count_answer(gid, keep, fv):
     return [counts.astype(np.int64).tolist(), sums.astype(np.int64).tolist()]
 
 
+def _timed_tier(mesh, calls, reps):
+    """Each kernel-tier call checked against its numpy answer, its
+    exchange bytes by op within its bound, then timed (CUDA events, median
+    of ``reps``). ``calls``: name -> (fn, check of its result, bound on
+    the bytes exchanged)."""
+    out = {}
+    for name, (fn, ok, bound) in calls.items():
+        before = launch_counts()
+        with distributed.exchange_tally(mesh) as tally:
+            res, _ms = event_ms(fn)
+        check(ok(res), f"{name}: result differs from the numpy answer")
+        del res
+        moved = tally.by_op()
+        check(0 < sum(moved.values()) <= bound,
+              f"{name}: exchange of {moved} bytes, bound {bound}")
+        times = [event_ms(fn)[1] for _ in range(reps)]
+        after = launch_counts()
+        runs = reps + 1
+        check(all((after[k] - before[k]) % runs == 0 for k in after),
+              f"{name}: launches differ between calls")
+        launched = {k: (after[k] - before[k]) // runs for k in after
+                    if after[k] > before[k]}
+        out[name] = dict(ms=statistics.median(times), runs_ms=times, exchange_bytes=moved,
+                         shards=mesh.size, launches=launched)
+        log(f"phase 6: {name}: {out[name]['ms']:.3f} ms (median of {reps}), exchange"
+            f" {moved} bytes, launches a call {launched}, equal to numpy")
+    return out
+
+
 def kernel_tier(device, mesh, n, reps):
-    """distributed_sum_count, distributed_join_aggregate and
-    distributed_multi_join_aggregate at bench multijoin's shape, each
-    equal to numpy (tolerance 0) and timed (CUDA events, median of
-    ``reps``) with its exchange bytes."""
+    """The kernel-tier functions at bench multijoin's shape, each equal to
+    numpy (tolerance 0) and timed with its exchange bytes:
+    distributed_sum_count, distributed_join_aggregate and
+    distributed_multi_join_aggregate; the sorts (distributed_sort and
+    distributed_order_permutation by (f.k1, f.v), distributed_bucket_sort
+    of the same order packed in one u64, distributed_topk of it and of a
+    key over all 64 bits); the
+    grouped aggregates by the dim1 bucket (distributed_grouped_aggregate,
+    distributed_count_distinct) and by (bucket, f.v), about 10^6 groups
+    (distributed_grouped_aggregate_sharded)."""
     t0 = time.perf_counter()
     d = multijoin_data(n, seed=31)
     sc_args = distributed.shard_table(mesh, [d["mask"], d["gid"], d["fv"]])
@@ -2209,54 +2365,145 @@ def kernel_tier(device, mesh, n, reps):
     d2f = torch.from_numpy(d["d2_flag"]).to(device)
     want = _sum_count_answer(d["gid"], d["mask"], d["fv"])
     want_multi = _sum_count_answer(d["gid"], d["mask"] & d["active"], d["fv"])
-    log(f"phase 6: bench multijoin's tables at {n} rows made in"
+
+    # the sorts: (f.k1, f.v) in one u64 (f.k1 < 2^23, f.v < 2^10)
+    key = (d["f_k1"] << np.uint64(10)) | d["fv"]
+    key_t = torch.from_numpy(key.view(np.int64)).to(device)
+    want_sorted = torch.from_numpy(np.sort(key).view(np.int64)).to(device)
+    keyd, rowid = distributed.shard_table(mesh, [key, np.arange(n, dtype=np.int64)])
+    top_k = 100
+    # the top-k again on a key over all 64 bits (the sql_topk timestamp):
+    # the histogram's 24-bit prefix cannot tell keys below 2^40 apart
+    ts = np.random.default_rng(37).integers(0, 1 << 63, n, dtype=np.uint64)
+    ts_t = torch.from_numpy(ts.view(np.int64)).to(device)
+    ts_top = torch.from_numpy(np.sort(np.partition(ts, n - top_k)[n - top_k:])[::-1].copy()
+                              .view(np.int64)).to(device)
+    (tsd,) = distributed.shard_table(mesh, [ts])
+    del ts
+    # the grouped aggregates by bucket: presence of each (bucket, f.v)
+    keep = d["mask"]
+    g, v = d["gid"][keep].astype(np.int64), d["fv"][keep].astype(np.int64)
+    pairs = np.bincount(g * 1000 + v, minlength=MJ_BUCKETS * 1000)
+    seen = pairs.reshape(MJ_BUCKETS, 1000) > 0
+    occ = np.nonzero(seen.any(1))[0]
+    grouped_want = [occ.tolist(), np.bincount(g, minlength=MJ_BUCKETS)[occ].tolist(),
+                    np.bincount(g, weights=v, minlength=MJ_BUCKETS)[occ].astype(np.int64).tolist(),
+                    seen[occ].argmax(1).tolist(), (999 - seen[occ, ::-1].argmax(1)).tolist()]
+    distinct_want = [occ.tolist(), seen[occ].sum(1).tolist()]
+    pair_occ = np.nonzero(pairs)[0]
+    k2_sums = np.bincount(g * 1000 + v, weights=d["f_k2"][keep].astype(np.float64),
+                          minlength=MJ_BUCKETS * 1000)
+    check(k2_sums.max() < 2.0**53, "expected sum not exact in float64")
+    sharded_want = [pair_occ.tolist(), pairs[pair_occ].tolist(),
+                    k2_sums[pair_occ].astype(np.int64).tolist()]
+    gidd, maskd = distributed.shard_table(mesh, [d["gid"], d["mask"]])
+    del g, v, pairs, seen, k2_sums, key
+    log(f"phase 6: bench multijoin's tables at {n} rows and their numpy answers made in"
         f" {time.perf_counter() - t0:.1f} s")
+
+    def sort_ok(res):
+        (k1s, fvs), (rows,) = res
+        got = torch.cat([(a << 10) | b for a, b in zip(k1s, fvs)])
+        return torch.equal(got, want_sorted) and torch.equal(key_t[torch.cat(rows)], got)
+
+    def bucket_ok(res):
+        keys, rows, counts, overflow = res
+        c = counts.tolist()
+        got = torch.cat([k[:m] for k, m in zip(keys, c)])
+        return (not bool(overflow) and torch.equal(got, want_sorted)
+                and torch.equal(key_t[torch.cat([r[:m] for r, m in zip(rows, c)])], got))
+
+    def topk_ok(res, keys=key_t, want_top=want_sorted[-top_k:].flip(0)):
+        vals, rows = res
+        return torch.equal(vals, want_top) and torch.equal(keys[rows], vals)
+
+    def grouped_ok(res):
+        (gk,), aggs, valid = res
+        return bool(valid.all()) and [gk.tolist()] + [a.tolist() for a in aggs] == grouped_want
+
+    def distinct_ok(res):
+        (gk,), counts, valid = res
+        return bool(valid.all()) and [gk.tolist(), counts.tolist()] == distinct_want
+
+    def sharded_ok(res):
+        (gk, fk), aggs, valid = res
+        flat = [torch.cat([t[m] for t, m in zip(col, valid)]) for col in (gk, fk, *aggs)]
+        return [(flat[0].to(torch.int64) * 1000 + flat[1]).tolist(), flat[2].tolist(),
+                flat[3].tolist()] == sharded_want
+
+    row_bytes_sort = 3 * 8  # two u64 keys and a row id
+    stages = 3  # log2(4) (log2(4) + 1) / 2
+    small = MESH_BYTES_PER_UNIT * (MJ_BUCKETS + MJ_DIM1) * mesh.size
     calls = {
         "distributed_sum_count": (
-            lambda: distributed.distributed_sum_count(mesh, *sc_args, MJ_BUCKETS), want),
+            lambda: distributed.distributed_sum_count(mesh, *sc_args, MJ_BUCKETS),
+            lambda r: [r[0].tolist(), r[1].tolist()] == want, small),
         "distributed_join_aggregate": (
             lambda: distributed.distributed_join_aggregate(
-                mesh, fk1, fv, fm, dim_keys, dim_bucket, MJ_BUCKETS), want),
+                mesh, fk1, fv, fm, dim_keys, dim_bucket, MJ_BUCKETS),
+            lambda r: [r[0].tolist(), r[1].tolist()] == want, small),
         "distributed_multi_join_aggregate": (
             lambda: distributed.distributed_multi_join_aggregate(
-                mesh, fk1, fk2, fv, fm, d1k, d1b, d2k, d2f, MJ_BUCKETS), want_multi),
+                mesh, fk1, fk2, fv, fm, d1k, d1b, d2k, d2f, MJ_BUCKETS),
+            lambda r: [r[0].tolist(), r[1].tolist()] == want_multi, small),
+        "distributed_sort": (
+            lambda: distributed.distributed_sort(mesh, [fk1, fv], [rowid]), sort_ok,
+            stages * n * row_bytes_sort),
+        "distributed_order_permutation": (
+            lambda: distributed.distributed_order_permutation(
+                mesh, [fk1, fv], [False, False], [True, True]),
+            lambda r: torch.equal(key_t[torch.cat(r)], want_sorted),
+            stages * n * (2 * 8 + 8)),
+        "distributed_bucket_sort": (
+            lambda: distributed.distributed_bucket_sort(mesh, keyd, rowid), bucket_ok,
+            2 * 16 * n + 65536),
+        "distributed_topk": (
+            lambda: distributed.distributed_topk(mesh, keyd, rowid, top_k), topk_ok,
+            mesh.size * top_k * 16),
+        "distributed_topk (64-bit key)": (
+            lambda: distributed.distributed_topk(mesh, tsd, rowid, top_k),
+            lambda r: topk_ok(r, ts_t, ts_top), mesh.size * top_k * 16),
+        "distributed_grouped_aggregate": (
+            lambda: distributed.distributed_grouped_aggregate(
+                mesh, maskd, [gidd], [fv] * 4, ["count", "sum", "min", "max"],
+                values_unsigned=[True] * 4), grouped_ok,
+            MESH_BYTES_PER_UNIT * MJ_BUCKETS * mesh.size),
+        "distributed_count_distinct": (
+            lambda: distributed.distributed_count_distinct(mesh, maskd, [gidd], fv),
+            distinct_ok, MESH_BYTES_PER_UNIT * len(pair_occ) * mesh.size),
+        "distributed_grouped_aggregate_sharded": (
+            lambda: distributed.distributed_grouped_aggregate_sharded(
+                mesh, maskd, [gidd, fv], [fk2, fk2], ["count", "sum"],
+                values_unsigned=[True, True], keys_unsigned=[False, True]),
+            sharded_ok, stages * MESH_BYTES_PER_UNIT * len(pair_occ) * mesh.size),
     }
-    out = {}
-    for name, (fn, expected) in calls.items():
-        with distributed.exchange_tally(mesh) as tally:
-            (counts, sums), _ms = event_ms(fn)
-        check([counts.tolist(), sums.tolist()] == expected,
-              f"{name}: counts or sums differ from the numpy answer")
-        moved = tally.by_op()
-        check(sum(moved.values()) <= MESH_BYTES_PER_UNIT * (MJ_BUCKETS + MJ_DIM1) * mesh.size,
-              f"{name}: exchange of {moved} bytes is not O(buckets)")
-        times = [event_ms(fn)[1] for _ in range(reps)]
-        out[name] = dict(ms=statistics.median(times), runs_ms=times, exchange_bytes=moved,
-                         rows=n, shards=mesh.size)
-        log(f"phase 6: {name}: {out[name]['ms']:.3f} ms (median of {reps}), exchange"
-            f" {moved} bytes, equal to numpy")
+    out = _timed_tier(mesh, calls, reps)
+    for name in out:
+        out[name]["rows"] = n
     return out
 
 
 def phase_mesh(device, tables, reps):
-    """Phase 4's queries over MeshTableProvider(n_shards=MESH_SHARDS) on the
-    card, each answer equal to phase 4's numpy answer (tolerance 0), its
-    route counter rising once a run, its exchange O(groups * shards); the
-    full scan ORDER BY raising ``not ported``; then the kernel-tier
-    functions at bench multijoin's shape. The single-card route's time of
-    each query is taken first, by the same clock, outside the counted
-    window. Returns launches, per-query launches and times, the
-    kernel-tier results and one recorded call per kernel (the first the
-    mesh path made)."""
+    """Phase 4's queries and the full ORDER BYs of ``mesh_order_queries``
+    and ``small_order_table`` over MeshTableProvider(n_shards=MESH_SHARDS)
+    on the card, each answer equal to its numpy answer (tolerance 0), its
+    route counter rising once a run (a full ORDER BY's also says which
+    sort served it), its exchange within its bound (``mesh_queries``); then the kernel-tier functions at bench multijoin's shape.
+    The single-card route's time of each query is taken first, by the
+    same clock, outside the counted window. Returns launches, per-query
+    launches and times, the kernel-tier results and one recorded call per
+    kernel (the first the mesh path made)."""
     full, rt = tables["full"], tables["rt"]
     n = full.get_table_data("t").num_rows
+    small, small_qs = small_order_table(seed=47)
+    full.add_table("o", small)
+    tables["mesh_oqs"] = mesh_order_queries(tables["cols"], tables["dictionary"]) + small_qs
     qs = mesh_queries(tables)
     single = {}
-    for name, sql, route, _ok, _units in qs:
-        if route is not None:
-            run_query(rt, full, sql)  # warm
-            single[name] = statistics.median(
-                event_ms(lambda: run_query(rt, full, sql))[1] for _ in range(reps))
+    for name, sql, _route, _ok, _bound in qs:
+        run_query(rt, full, sql)  # warm
+        single[name] = statistics.median(
+            event_ms(lambda: run_query(rt, full, sql))[1] for _ in range(reps))
 
     # the mesh routes run on the provider's shards whatever the Runtime's
     # device; None sends a plan they decline to the host engine, so no
@@ -2264,24 +2511,14 @@ def phase_mesh(device, tables, reps):
     mesh_rt = Runtime(device=None)
     t0 = time.perf_counter()
     provider = MeshTableProvider(n_shards=MESH_SHARDS, device="cuda")
-    for name in ("t", "d1", "d2"):
+    for name in ("t", "d1", "d2", "o"):
         provider.add_table(name, full.get_table_data(name))
     mesh = provider.mesh
     check(mesh.devices == [device] * MESH_SHARDS or torch.cuda.device_count() > 1,
           f"mesh devices {mesh.devices}")
     per_query, first_calls = {}, {}
     zero_launch_counts()
-    for name, sql, route, ok, units in qs:
-        if route is None:
-            try:
-                run_query(mesh_rt, provider, sql)
-            except RuntimeError_ as e:
-                check("not ported" in str(e) and "mesh ORDER BY" in str(e),
-                      f"{name}: raised {e}")
-            else:
-                check(False, f"{name}: a full scan ORDER BY over the mesh did not raise")
-            log(f"phase 6: {name}: full scan ORDER BY over the mesh raises 'not ported'")
-            continue
+    for name, sql, route, ok, bound in qs:
         before, counters = launch_counts(), _mesh_counters()
         # the first run, untimed, is the one whose kernel calls are
         # recorded (the first of each kernel is kept) and whose exchange
@@ -2294,9 +2531,7 @@ def phase_mesh(device, tables, reps):
         rec.calls.clear()
         moved = tally.bytes()
         check(ok(res.rows), f"{name}: mesh rows or their order differ from the numpy answer")
-        bound = MESH_BYTES_PER_UNIT * units * MESH_SHARDS
-        check(0 < moved <= bound, f"{name}: exchange of {moved} bytes > {bound}"
-              f" ({units} groups or candidates x {MESH_SHARDS} shards)")
+        check(0 < moved <= bound, f"{name}: exchange of {moved} bytes > {bound}")
         # warm runs, timed as the single-card route was (no recorder):
         # device bytes a run allocates beyond what is held (the columns
         # of both providers and the recorded first calls)
@@ -2310,20 +2545,25 @@ def phase_mesh(device, tables, reps):
         peak = torch.cuda.max_memory_allocated() - held
         runs = reps + 1
         delta = [b - a for a, b in zip(counters, _mesh_counters())]
-        check(delta == [runs * (route == r) for r in range(3)],
-              f"{name}: mesh route counters {delta}")
+        want = [runs * (route == r) for r in range(3)] + [runs * (route >= 3),
+                                                          runs * (route == 3)]
+        check(delta == want, f"{name}: mesh route counters {delta}, expected {want}")
         after = launch_counts()
         launched = {k: after[k] - before[k] for k in after}
         check(all(c % runs == 0 for c in launched.values()),
               f"{name}: launches {launched} differ between runs")
         per_query[name] = dict(
             mesh_ms=statistics.median(times), single_card_ms=single[name],
-            exchange_bytes=moved, exchange_units=units, held_bytes=held,
-            peak_bytes_beyond_held=peak,
+            exchange_bytes=moved, exchange_by_op=tally.by_op(), exchange_bound=bound,
+            held_bytes=held, peak_bytes_beyond_held=peak,
             launches={k: c // runs for k, c in launched.items() if c})
+        if route >= 3:
+            per_query[name]["sort"] = "sample sort" if route == 3 else "compare-split"
+            per_query[name]["rows"] = len(res.rows)
         log(f"phase 6: {name}: mesh {per_query[name]['mesh_ms']:.3f} ms, single card"
             f" {single[name]:.3f} ms (CUDA events, median of {reps}); exchange {moved}"
-            f" bytes ({units} units); launches a run {per_query[name]['launches']}")
+            f" bytes (bound {bound}); launches a run {per_query[name]['launches']}"
+            + (f"; {per_query[name]['sort']}" if route >= 3 else ""))
     log(f"phase 6: {len(per_query)} queries over {MESH_SHARDS} shards of"
         f" {provider.padded_rows(n) // MESH_SHARDS} rows equal to numpy in"
         f" {time.perf_counter() - t0:.1f} s")
@@ -2351,6 +2591,7 @@ def mesh_shapes(first_calls):
             res = check_and_time_join(kernel, label, kw, 5)
         else:
             res = check_and_time(kernel, label, kw, 5)
+            res.update(b1_library_ms(kw) if kernel == "groupby_agg" else b2_library_ms(kw))
         out[kernel] = dict(query=query, **res)
     log(f"phase 6: {len(out)} kernels' first mesh calls equal to their plain versions"
         f" (tolerance 0)")

@@ -8,7 +8,8 @@ The counterpart of eventql_tpu/exec/mesh_exec.py, over the shards of a
   them with the hash aggregate H1 (kernels/hash_groupby.py), and keeps
   a compact partial: only the groups it has, each with its key bits and
   its first global row. The partials are gathered on the merge shard
-  and H1 merges them once more (counts and sums add, min / max, the
+  and H1 merges them once more (parallel/distributed.py
+  ``_local_partial`` / ``_merge``: counts and sums add, min / max, the
   first row by min; mean travels as (sum, count)). count_distinct
   exchanges each shard's distinct (keys, value) pairs, which H1
   deduplicates again before a count per key.
@@ -22,6 +23,13 @@ The counterpart of eventql_tpu/exec/mesh_exec.py, over the shards of a
   top-k B1 + B3 for one key, a stable sort for several), the candidates
   are gathered, and a stable sort picks the window: key order, then the
   lowest global row.
+* ``try_execute_mesh_scan_order``: the full ORDER BY. One key, or
+  several bounded keys packed into one u64, take the sample sort
+  (``distributed_bucket_sort``: one exchange of fixed-capacity buckets);
+  other key lists, and a sample sort that cannot be exact (a bucket
+  overflows, a passing key is the sentinel), take the compare-split
+  sort (``distributed_sort``) of each shard's passing rows. The global
+  row id breaks ties, so the order is the host engine's.
 
 The JAX routes all-gather partial tables as long as a shard, so their
 exchange grows with the rows (O(rows * P)) and their merge re-sorts
@@ -29,10 +37,9 @@ P * rows entries. Here what crosses is O(groups * P) for a GROUP BY or a
 join (distinct pairs for count_distinct) and O(k * P) for a top-k; the
 answers are the same. Group order is that of the first global rows (the
 host engine's); non-aggregate select entries are evaluated on the host
-at those rows. A plan these routes decline returns None, and the host
-engine serves it, as in the JAX package. A full scan ORDER BY, which the
-JAX tier serves with its distributed sorts, is not ported
-(operators._exec_order_by raises).
+at those rows, as are the rows a sort returns. A plan these routes
+decline returns None, and the host engine serves it, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -46,7 +53,14 @@ from eventql_tpu_torch.core.types import SType
 from eventql_tpu_torch.exec import device_exec as dx
 from eventql_tpu_torch.exec import torch_expr
 from eventql_tpu_torch.exec.relation import Column, Relation, dtype_for
-from eventql_tpu_torch.parallel.distributed import _xch_all_gather, _xch_psum
+from eventql_tpu_torch.parallel.distributed import (
+    _Merged,
+    _local_partial,
+    _merge,
+    _Partial,
+    _xch_all_gather,
+    _xch_psum,
+)
 from eventql_tpu_torch.plan import nodes as qn
 from eventql_tpu_torch.plan.exprs import CallExpressionNode, has_aggregate_call
 
@@ -54,8 +68,8 @@ from eventql_tpu_torch.plan.exprs import CallExpressionNode, has_aggregate_call
 MESH_GROUPBY_RUNS = 0
 MESH_TOPK_RUNS = 0
 MESH_JOIN_RUNS = 0
-
-_MERGE_KIND = {"count": "sum", "sum": "sum", "min": "min", "max": "max"}
+MESH_ORDER_RUNS = 0  # full ORDER BY, either sort
+MESH_BUCKET_SORT_RUNS = 0  # of those, the ones the sample sort served
 
 
 class _Shard(NamedTuple):
@@ -91,107 +105,7 @@ def _shard_mask(shard: _Shard, wheres) -> Optional[torch.Tensor]:
     return None if mask is None else mask.contiguous()
 
 
-# -- compact partials and their merge -----------------------------------------
-
-
-class _Partial(NamedTuple):
-    """One shard's groups (only those it has): each group's key bits (the
-    key streams at its first row, in their own dtypes), count, one
-    aggregate per value stream, first global row; and per count_distinct
-    stream the distinct (keys..., value) pairs as (key bits list, first
-    global row)."""
-
-    keys: list
-    counts: torch.Tensor
-    aggs: list
-    first: torch.Tensor
-    pairs: list
-
-
-def _compact(res, keys, g0: int):
-    """The occupied groups of a ``hash_groupby`` result (a direct tier
-    returns every slot): key bits, counts, aggregates, global first rows."""
-    occ = torch.nonzero(res.counts > 0).flatten()
-    first = res.first_index[occ]
-    return ([k[first] for k in keys], res.counts[occ], [a[occ] for a in res.aggregates],
-            first + g0)
-
-
-def _local_partial(keys, spans, n, mask, values, kinds, unsigned, distinct, dspans, g0):
-    """One shard's H1 partial. A mean is summed here and divided after the
-    merge."""
-    from eventql_tpu_torch.kernels.hash_groupby import hash_groupby
-
-    local_kinds = ["sum" if k == "mean" else k for k in kinds]
-    res = hash_groupby(keys, n, mask, values, local_kinds, unsigned, (), spans)
-    kc, counts, aggs, first = _compact(res, keys, g0)
-    del res
-    pairs = []
-    for d, dspan in zip(distinct, dspans):
-        pres = hash_groupby([*keys, d], n, mask, key_spans=[*spans, dspan])
-        pk, _counts, _aggs, pfirst = _compact(pres, [*keys, d], g0)
-        pairs.append((pk, pfirst))
-        del pres
-    return _Partial(kc, counts, aggs, first, pairs)
-
-
-class _Merged(NamedTuple):
-    """The merged groups on the merge shard, in the order of their first
-    global rows."""
-
-    keys: list
-    counts: torch.Tensor
-    aggs: list
-    first: torch.Tensor
-    distinct: list
-
-
-def _merge(mesh, parts, spans, kinds, unsigned, dspans, op) -> Optional[_Merged]:
-    """Gather the shards' compact partials and merge them with H1 on the
-    merge shard: counts and sums add, min / max by ``kinds`` (the local
-    kinds; a mean's sum adds), first rows by min. count_distinct: the
-    gathered pairs are deduplicated, then counted per key. None when no
-    shard has a group."""
-    from eventql_tpu_torch.kernels.hash_groupby import hash_groupby
-
-    def gather(rows):
-        return _xch_all_gather(mesh, rows, op)
-
-    nk = len(spans)
-    keys = [gather([p.keys[j] for p in parts]) for j in range(nk)]
-    counts = gather([p.counts for p in parts])
-    aggs = [gather([p.aggs[j] for p in parts]) for j in range(len(kinds))]
-    first = gather([p.first for p in parts])
-    G = counts.shape[0]
-    if G == 0:
-        return None
-    merge_kinds = ["sum", *(_MERGE_KIND.get(k, "sum") for k in kinds), "min"]
-    res = hash_groupby(keys, G, None, [counts, *aggs, first], merge_kinds,
-                       [False, *unsigned, False], (), spans)
-    occ = torch.nonzero(res.counts > 0).flatten()
-    m_first = res.aggregates[-1][occ]
-    order = occ[torch.argsort(m_first)]
-    rows = res.first_index[order]
-    merged = _Merged([k[rows] for k in keys], res.aggregates[0][order],
-                     [a[order] for a in res.aggregates[1:-1]], res.aggregates[-1][order], [])
-    del res
-    for j, dspan in enumerate(dspans):
-        pkeys = [gather([p.pairs[j][0][i] for p in parts]) for i in range(nk + 1)]
-        pfirst = gather([p.pairs[j][1] for p in parts])
-        # the same pair on several shards: once, with its first row
-        dedup = hash_groupby(pkeys, pfirst.shape[0], None, [pfirst], ["min"], None, (),
-                             [*spans, dspan])
-        occ = torch.nonzero(dedup.counts > 0).flatten()
-        at = dedup.first_index[occ]
-        per_key = hash_groupby([k[at] for k in pkeys[:nk]], occ.shape[0], None,
-                               [dedup.aggregates[0][occ]], ["min"], None, (), spans)
-        occ = torch.nonzero(per_key.counts > 0).flatten()
-        # a key's first pair row is the key's first row: the order above
-        occ = occ[torch.argsort(per_key.aggregates[0][occ])]
-        if occ.shape[0] != merged.counts.shape[0]:
-            raise AssertionError("count_distinct groups differ from the merged groups")
-        merged.distinct.append(per_key.counts[occ])
-    return merged
+# -- the merged groups on the host ----------------------------------------------
 
 
 def _read_merged(m: _Merged, with_keys: bool = False):
@@ -599,11 +513,163 @@ def try_execute_mesh_scan_topk(node: qn.LimitNode, txn) -> Optional[Relation]:
     return dx._emit_scan_rows(scan, table, sorted_window(), lo, hi)
 
 
-def mesh_order_served(order_node: qn.OrderByNode, txn) -> bool:
-    """Would the JAX mesh tier serve this full scan ORDER BY (its route
-    ``try_execute_mesh_scan_order``: a scan child, a power of two shards,
-    the order analysis)? The port has no such route yet."""
-    mesh = txn.tables.mesh
+# -- ORDER BY ------------------------------------------------------------------
+
+
+def _pack_plan(bounds):
+    """The field widths of a multi-key ORDER BY whose keys are all
+    statically bounded and together fit 64 bits (the JAX route's rule):
+    one u64 then holds the key tuple, the first key most significant.
+    None otherwise."""
+    if len(bounds) < 2 or any(b is None for b in bounds):
+        return None
+    bits = [max(1, (hi - lo).bit_length()) for lo, hi in bounds]
+    return bits if sum(bits) <= 64 else None
+
+
+def _bucket_key(keys, bounds, bits) -> torch.Tensor:
+    """One shard's u64 bucket key: the single key as its u64 (the JAX
+    route sorts the u64 key, so its sentinel rule is the same), or the
+    fields of several packed into one. A bounded key arrives as ``key -
+    lo`` in 32 bits (``device_exec._scan_order_keys``): that is its field."""
+    from eventql_tpu_torch.parallel.distributed import _widen_u32
+
+    if bits is None:
+        (k,), (b,) = keys, bounds
+        return k if b is None else _widen_u32(k, b[0])
+    packed = None
+    for k, nb in zip(keys, bits):
+        field = _widen_u32(k, 0)
+        packed = field if packed is None else (packed << nb) | field
+    return packed
+
+
+def _gather_rows(mesh, parts, counts) -> "np.ndarray":
+    """The first ``counts[i]`` entries of shard i's tensor, in shard
+    order, read to the host in one copy."""
+    from eventql_tpu_torch.kernels.sort import read_host
+
+    return read_host(torch.cat([p[:int(c)].to(mesh.root) for p, c in zip(parts, counts)]))
+
+
+def _bucket_order(shards, mesh, keys_of, bounds, bits):
+    """The passing rows' global ids in ORDER BY order through
+    ``distributed_bucket_sort``, or None where it cannot be exact:
+    splitter overflow, a passing row whose key is the sentinel (u64 max,
+    NaN sorted last), or a count that differs from the passing rows'.
+    ``keys_of(shard)``: the shard's (mask, keys)."""
+    from eventql_tpu_torch.kernels.sort import read_host
+    from eventql_tpu_torch.parallel.distributed import SENTINEL, distributed_bucket_sort
+
+    bkeys, gids, passes, collides = [], [], [], []
+    for shard in shards:
+        mask, keys = keys_of(shard)
+        k0 = _bucket_key(keys, bounds, bits)
+        hit = k0 == SENTINEL
+        if mask is None:
+            passes.append(torch.full((1,), shard.n, dtype=torch.int64, device=shard.device))
+        else:
+            passes.append(mask.sum().reshape(1))
+            hit &= mask
+            k0 = torch.where(mask, k0, SENTINEL)
+        collides.append(hit.sum().reshape(1))
+        bkeys.append(k0)
+        gids.append(torch.arange(shard.n, dtype=torch.int64, device=shard.device) + shard.g0)
+        del mask, keys, hit
+    collide = _xch_psum(mesh, collides, "order_collide")
+    n_pass = _xch_psum(mesh, passes, "order_npass")
+    _keys, rows, counts, overflow = distributed_bucket_sort(mesh, bkeys, gids)
+    del bkeys, gids, _keys
+    # the host's decision: one readback
+    flags = read_host(torch.cat([counts, overflow.to(torch.int64).reshape(1), collide, n_pass]))
+    P = mesh.size
+    counts_h, n_pass_h = flags[:P], int(flags[P + 2])
+    if flags[P] or flags[P + 1] or int(counts_h.sum()) != n_pass_h:
+        return None
+    return _gather_rows(mesh, rows, counts_h)
+
+
+def _compare_split_order(shards, mesh, keys_of):
+    """The passing rows' global ids in ORDER BY order through
+    ``distributed_sort``, always exact. Each shard first keeps only its
+    passing rows, padded to the longest shard's count (the padding sorts
+    last on a leading key); the sort keys are then (padding, keys...,
+    global row), the row id making the order the host engine's stable
+    one. The JAX route sorts every row with the filter as leading key;
+    the answer is the same, and a selective WHERE sorts a fraction.
+    ``keys_of(shard)``: the shard's (mask, keys)."""
+    from eventql_tpu_torch.parallel.distributed import distributed_sort
+
+    kept = []
+    for shard in shards:
+        mask, keys = keys_of(shard)
+        gid = torch.arange(shard.n, dtype=torch.int64, device=shard.device) + shard.g0
+        if mask is None:
+            kept.append((keys, gid))
+        else:
+            rows = torch.nonzero(mask).flatten()
+            kept.append(([k[rows] for k in keys], gid[rows]))
+        del mask, keys
+    counts = [gid.shape[0] for _keys, gid in kept]
+    L = max(counts)
+    if L == 0:
+        return np.zeros(0, np.int64)
+
+    def pad(t):
+        return torch.cat([t, torch.zeros(L - t.shape[0], dtype=t.dtype, device=t.device)])
+
+    cols = [[torch.arange(L, device=gid.device) >= gid.shape[0]] + [pad(k) for k in keys]
+            + [pad(gid)] for keys, gid in kept]
+    del kept
+    sorted_keys, _ = distributed_sort(mesh, [[c[j] for c in cols] for j in range(len(cols[0]))])
+    del cols
+    total = sum(counts)
+    per = [min(L, max(total - i * L, 0)) for i in range(mesh.size)]
+    return _gather_rows(mesh, sorted_keys[-1], per)
+
+
+def try_execute_mesh_scan_order(order_node: qn.OrderByNode, txn) -> Optional[Relation]:
+    """Full SELECT ... [WHERE] ORDER BY over the mesh (the JAX
+    ``try_execute_mesh_scan_order``). One key, or several statically
+    bounded keys whose widths sum to at most 64 bits (packed into one
+    u64, the first key most significant), take the sample sort
+    (``distributed_bucket_sort``): filtered rows key to the sentinel and
+    drop out of the exchange, and the global row id is the payload, so
+    ties keep the host engine's stable order. Where that cannot be exact
+    (splitter overflow, a passing row keyed to the sentinel, a count
+    that differs) and for other multi-key specs, the compare-split sort
+    (``distributed_sort``) serves. Each sort builds each shard's WHERE,
+    padding mask and keys in turn and keeps only what it sorts: a
+    fallback builds them a second time rather than hold every shard's
+    through the sample sort. None on a mesh whose size is not a power of
+    two (the JAX gate) or for a plan the order analysis declines: the
+    host engine sorts. Only the passing rows' global ids leave the
+    device; the host evaluates those rows."""
+    global MESH_ORDER_RUNS, MESH_BUCKET_SORT_RUNS
+
+    provider = txn.tables
+    mesh = provider.mesh
     if mesh.size & (mesh.size - 1):
-        return False
-    return _mesh_order_analysis(order_node, txn) is not None
+        return None
+    prep = _mesh_order_analysis(order_node, txn)
+    if prep is None:
+        return None
+    scan, table, _n, null_ranks, bounds = prep
+    shards = _shards(provider, scan)
+
+    def keys_of(shard):
+        return _mesh_keys_in_shard(order_node, scan, shard, null_ranks, bounds)
+
+    bits = _pack_plan(bounds)
+    rows = None
+    if len(order_node.sort_specs) == 1 or bits is not None:
+        rows = _bucket_order(shards, mesh, keys_of, bounds, bits)
+        if rows is not None:
+            MESH_BUCKET_SORT_RUNS += 1
+    if rows is None:
+        rows = _compare_split_order(shards, mesh, keys_of)
+    MESH_ORDER_RUNS += 1
+    return dx._emit_scan_rows(scan, table, rows)
+    rows = _compare_split_order(order_node, scan, shards, mesh, null_ranks, bounds)
+    MESH_ORDER_RUNS += 1
+    return dx._emit_scan_rows(scan, table, rows, lo, hi)

@@ -10,11 +10,11 @@ loops (see SURVEY.md Appendix A).
 This is the port's own copy of the host engine. It is the semantic
 reference of the CUDA routes (exec/device_exec.py: GROUP BY, fact-dim
 JOIN + GROUP BY, ORDER BY, ORDER BY ... LIMIT; exec/mesh_exec.py: the
-same over a table sharded on a mesh, but the full ORDER BY) and serves
-every plan the routes decline.
+same over a table sharded on a mesh) and serves every plan the routes
+decline.
 Tiers that are not ported yet (partitioned and cluster providers, the
-mesh's full ORDER BY, the query cache, charts, nested scans) raise
-RuntimeError_ naming what is missing instead of being silently skipped.
+query cache, charts, nested scans) raise RuntimeError_ naming what is
+missing instead of being silently skipped.
 """
 
 from __future__ import annotations
@@ -829,12 +829,12 @@ def _on_mesh(txn) -> bool:
 
 def _exec_order_by(node: qn.OrderByNode, txn) -> Relation:
     if _on_mesh(txn) and isinstance(node.table, qn.SequentialScanNode):
-        from eventql_tpu_torch.exec.mesh_exec import mesh_order_served
+        # the mesh sorts; None -> not routable
+        from eventql_tpu_torch.exec.mesh_exec import try_execute_mesh_scan_order
 
-        if mesh_order_served(node, txn):
-            # the JAX mesh tier sorts this over the mesh; nothing here
-            # falls to the host quietly in its place
-            raise _not_ported("mesh ORDER BY (distributed_bucket_sort / distributed_sort)")
+        result = try_execute_mesh_scan_order(node, txn)
+        if result is not None:
+            return result
 
     if getattr(txn, "device", None) is not None and isinstance(
         node.table, qn.SequentialScanNode

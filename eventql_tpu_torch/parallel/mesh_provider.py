@@ -5,8 +5,8 @@ distributed scheduler rewrites a query into per-partition partial plans
 fanned out over TCP (reference: server/sql/scheduler.cc:55-264); here the
 table lies in equal row blocks on the shards of a ``Mesh``
 (parallel/distributed.py) and exec/mesh_exec.py runs GROUP BY, JOIN +
-GROUP BY and ORDER BY ... LIMIT plans shard by shard, exchanging only
-accumulator tables or top-k candidates.
+GROUP BY, ORDER BY ... LIMIT and ORDER BY plans shard by shard,
+exchanging accumulator tables, top-k candidates or sorted runs.
 
 The provider keeps the host Relation (it IS a RelationTableProvider), so
 every plan the mesh routes decline is served by the host engine.

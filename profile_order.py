@@ -10,7 +10,9 @@ torch.profiler, and prints per query: the wall time of the profiled
 run, the summed device time, the device's idle share of the wall time,
 and the device time by kernel name (the largest first); for a join query
 also the host time its plan analysis took in that run (the dimension
-side is evaluated on the host there). The profiler
+side is evaluated on the host there). Then the same for the full ORDER
+BYs of chip_smoke.py phase 6 over its mesh of shards on the one card,
+with the kernel launches and the host time by operator. The profiler
 slows the host side, so the wall time here is not the query's latency
 (chip_smoke.py reports that); the split of the device time is the point.
 """
@@ -58,8 +60,6 @@ def main():
     dims = chip_smoke.make_dims(seed=43)
     provider = chip_smoke.add_dims(chip_smoke.provider_of(cols, dictionary, n), dims)
     rt = Runtime(plan_cache=PlanCache(), device=device)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     # the join route's plan analysis, on the host clock
     analysis_ms = []
@@ -75,35 +75,68 @@ def main():
     queries = chip_smoke.order_queries(cols, dictionary, n) + [
         q for q in chip_smoke.join_queries(cols, dims, n) if q[-1] is not None]
     for name, sql, *_rest in queries:
-        for _ in range(3):
-            chip_smoke.run_query(rt, provider, sql)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            chip_smoke.run_query(rt, provider, sql)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t) * 1e3
-        by_kernel = {}
-        for ev in prof.key_averages():
-            # kernel events only: an operator's entry repeats the time of
-            # the kernels it launched
-            if ev.device_type != DeviceType.CUDA:
-                continue
-            dev_us = getattr(ev, "self_device_time_total", 0) or 0
-            if dev_us > 0:
-                key = _short(ev.key)
-                by_kernel[key] = by_kernel.get(key, 0.0) + dev_us / 1e3
-        device_ms = sum(by_kernel.values())
-        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:16]
-        out = {
-            "query": name, "rows": n, "profiled_wall_ms": wall_ms,
-            "device_ms": device_ms,
-            "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
-            "device_ms_by_kernel": {k: round(v, 4) for k, v in top},
-        }
+        out = _profiled(rt, provider, name, sql, n)
         if name.startswith("join"):
             out["host_plan_analysis_ms"] = analysis_ms[-1]
         print(json.dumps(out), flush=True)
+
+    # the full ORDER BYs of chip_smoke.py phase 6 over its mesh of shards
+    # on the one card (Runtime(device=None): the mesh route alone)
+    from eventql_tpu_torch.parallel.mesh_provider import MeshTableProvider
+
+    small, small_qs = chip_smoke.small_order_table(seed=47)
+    mesh = MeshTableProvider(n_shards=chip_smoke.MESH_SHARDS, device="cuda")
+    mesh.add_table("t", provider.get_table_data("t"))
+    mesh.add_table("o", small)
+    mesh_qs = [(name, sql) for name, sql, route, *_rest in chip_smoke.order_queries(
+        cols, dictionary, n) if route == "order"]
+    mesh_qs += [(name, sql) for name, sql, *_rest in
+                chip_smoke.mesh_order_queries(cols, dictionary) + small_qs]
+    for name, sql in mesh_qs:
+        out = _profiled(Runtime(device=None), mesh, name, sql, n)
+        out["mesh_shards"] = chip_smoke.MESH_SHARDS
+        print(json.dumps(out), flush=True)
+
+
+def _profiled(rt, provider, name, sql, n):
+    """The query run until warm, then once under torch.profiler: its
+    wall time, device time, idle share and device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        chip_smoke.run_query(rt, provider, sql)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        chip_smoke.run_query(rt, provider, sql)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    by_kernel, host_by_op = {}, {}
+    launches = 0
+    for ev in prof.key_averages():
+        # kernel events only: an operator's entry repeats the time of
+        # the kernels it launched
+        if ev.device_type != DeviceType.CUDA:
+            if ev.key.startswith("aten::"):
+                host_by_op[ev.key] = ev.self_cpu_time_total / 1e3
+            continue
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0:
+            key = _short(ev.key)
+            by_kernel[key] = by_kernel.get(key, 0.0) + dev_us / 1e3
+            launches += ev.count
+    device_ms = sum(by_kernel.values())
+    top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:16]
+    return {
+        "query": name, "rows": n, "profiled_wall_ms": wall_ms,
+        "device_ms": device_ms,
+        "device_idle_share": max(0.0, 1.0 - device_ms / wall_ms),
+        "device_launches": launches,
+        "device_ms_by_kernel": {k: round(v, 4) for k, v in top},
+        "host_ms_by_op": {k: round(v, 3) for k, v in
+                          sorted(host_by_op.items(), key=lambda kv: -kv[1])[:8]},
+    }
 
 
 if __name__ == "__main__":

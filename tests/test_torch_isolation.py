@@ -102,12 +102,46 @@ for q in ("select k, count(1), sum(v), min(v), count_distinct(v) from t group by
     assert got == want, (q, got, want)
 assert (mesh_exec.MESH_GROUPBY_RUNS, mesh_exec.MESH_JOIN_RUNS,
         mesh_exec.MESH_TOPK_RUNS) == (1, 1, 1)
+# the full ORDER BY: one key and two packed keys (the sample sort), a
+# computed key beside a string (the compare-split)
+for q in ("select v, k from t order by v desc;",
+          "select k, v from t where v < 900 order by k desc, v;",
+          "select k, v from t where v < 900 order by v + 1, k;"):
+    got = host_rt.build_query_plan(host_rt.new_transaction(mp), q).execute(0).rows
+    want = host_rt.build_query_plan(host_rt.new_transaction(p), q).execute(0).rows
+    assert got == want, (q, got[:5], want[:5])
+assert (mesh_exec.MESH_ORDER_RUNS, mesh_exec.MESH_BUCKET_SORT_RUNS) == (3, 2)
 mesh = distributed.make_mesh(4, "cpu")
 gid = (k % 3).astype(np.int32)
 counts, sums = distributed.distributed_sum_count(
     mesh, *distributed.shard_table(mesh, [v < 800, gid, v]), 3)
 assert counts.tolist() == np.bincount(gid[v < 800], minlength=3).tolist()
 assert sums.tolist() == [int(v[(v < 800) & (gid == g)].sum()) for g in range(3)]
+# the kernel tier's sorts, top-k and grouped aggregates against numpy
+import torch
+vs, ids = distributed.shard_table(mesh, [v, np.arange(n)])
+(sv,), (sp,) = distributed.distributed_sort(mesh, [vs], [ids])
+assert torch.cat(sv).tolist() == np.sort(v).tolist()
+assert v[torch.cat(sp).numpy()].tolist() == np.sort(v).tolist()
+perm = torch.cat(distributed.distributed_order_permutation(mesh, [vs], [True]))
+assert v[perm.numpy()].tolist() == np.sort(v)[::-1].tolist()
+bk, bp, bc, over = distributed.distributed_bucket_sort(mesh, vs, ids)
+assert not bool(over)
+assert sum((t[:c].tolist() for t, c in zip(bk, bc.tolist())), []) == np.sort(v).tolist()
+tv, ti = distributed.distributed_topk(mesh, vs, ids, 5)
+assert tv.tolist() == np.sort(v)[::-1][:5].tolist() and v[ti.numpy()].tolist() == tv.tolist()
+ms, gs = distributed.shard_table(mesh, [v < 800, k % 3])
+gk, (cnt, sm), _valid = distributed.distributed_grouped_aggregate(
+    mesh, ms, [gs], [vs, vs], ["count", "sum"])
+assert gk[0].tolist() == [0, 1, 2]
+assert cnt.tolist() == np.bincount((k % 3)[v < 800], minlength=3).tolist()
+assert sm.tolist() == [int(v[(v < 800) & (k % 3 == g)].sum()) for g in range(3)]
+gk, dc, _valid = distributed.distributed_count_distinct(mesh, ms, [gs], vs)
+assert dc.tolist() == [len(np.unique(v[(v < 800) & (k % 3 == g)])) for g in range(3)]
+gk, (mx,), valid = distributed.distributed_grouped_aggregate_sharded(
+    mesh, ms, [gs], [vs], ["max"])
+assert sum((t[m].tolist() for t, m in zip(mx, valid)), []) == [
+    int(v[(v < 800) & (k % 3 == g)].max()) for g in range(3)]
 try:
     distributed.make_mesh(2, "cuda")
 except RuntimeError_ as e:

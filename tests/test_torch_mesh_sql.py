@@ -18,6 +18,7 @@ import random
 import numpy as np
 import pytest
 
+import test_fuzz_device_order as jax_order_fuzz
 import test_fuzz_device_parity as jax_fuzz
 import test_mesh_sql as jax_mesh
 
@@ -27,7 +28,6 @@ from eventql_tpu.exec.runtime import RelationTableProvider as JaxProvider
 from eventql_tpu.exec.runtime import Runtime as JaxRuntime
 from eventql_tpu.parallel import distributed as jax_dist
 from eventql_tpu.parallel.mesh_provider import MeshTableProvider as JaxMesh
-from eventql_tpu_torch.core.errors import RuntimeError_
 from eventql_tpu_torch.exec import mesh_exec
 from eventql_tpu_torch.exec.relation import relation_from_numpy
 from eventql_tpu_torch.exec.runtime import Runtime
@@ -171,10 +171,108 @@ def test_multi_key_limit_takes_the_mesh_top_k():
     assert mesh_exec.MESH_TOPK_RUNS == before + 1
 
 
-@pytest.mark.parametrize("query", jax_mesh.ORDER_QUERIES)
-def test_full_scan_order_by_raises_not_ported(query):
-    with pytest.raises(RuntimeError_, match="not ported.*mesh ORDER BY"):
-        _run_port(_port_mesh(_tables()["t"]), query)
+def _order_counters(module):
+    return module.MESH_ORDER_RUNS, module.MESH_BUCKET_SORT_RUNS
+
+
+def _jax_mesh_of(tables, n_shards):
+    """The JAX mesh tier over a mesh of ``n_shards`` virtual devices (the
+    file's mesh for 8)."""
+    if n_shards == P:
+        return _jax_provider(tables, mesh=True)
+    p = JaxMesh(n_devices=n_shards)
+    for name, rel in tables.items():
+        p.add_table(name, rel)
+    return p
+
+
+# test_mesh_sql.py's full scan ORDER BY queries, its packed multi-key
+# query (string rank 5 bits + u16 10 bits + u16 16 bits: one u64 key,
+# the sample sort) and its unbounded one (a float key: the compare-split)
+ORDER_ROUTED = ([(q, 1) for q in jax_mesh.ORDER_QUERIES]
+                + [("select city, k, v from t where v < 200 order by city, k desc, v;", 1),
+                   ("select f, k from t where v < 100 order by f, k;", 0),
+                   ("select k, v, i from t order by i desc;", 1)])
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 8])
+@pytest.mark.parametrize("query,bucket", ORDER_ROUTED)
+def test_full_scan_order_by_matches_the_jax_mesh_tier(query, bucket, n_shards):
+    """Row for row the JAX mesh tier's ResultList, through the same path:
+    the sample sort (``MESH_BUCKET_SORT_RUNS``) or the compare-split."""
+    from eventql_tpu.exec import mesh_exec as jax_mesh_exec
+
+    tables = _tables()["t"]
+    jb = _order_counters(jax_mesh_exec)
+    want = _run_jax(_jax_mesh_of(tables, n_shards), query)
+    jax_delta = [b - a for a, b in zip(jb, _order_counters(jax_mesh_exec))]
+    before = _order_counters(mesh_exec)
+    got = _run_port(_port_mesh(tables, n_shards), query)
+    assert got == want
+    delta = [b - a for a, b in zip(before, _order_counters(mesh_exec))]
+    assert delta == jax_delta == [1, bucket]
+    assert want == _run_jax(_jax_provider(tables), query)
+
+
+@pytest.mark.parametrize("case", ["overflow", "u64_max", "nan"])
+def test_full_scan_order_by_falls_back_to_the_compare_split(case):
+    """Where the sample sort cannot be exact the compare-split serves, as
+    in the JAX tier: all-equal keys overflow a bucket; a passing row whose
+    key is the sentinel (u64 max, or NaN, which sorts last) would drop out
+    of the exchange with the filtered rows. The JAX mesh tier takes the
+    same path (its counters) and both equal its host engine."""
+    from eventql_tpu.exec import mesh_exec as jax_mesh_exec
+
+    n = 8 * 100
+    rng = np.random.default_rng(17)
+    rowid = (SType.UINT64, np.arange(n))
+    if case == "overflow":
+        tables = {"t": _rel(v=(SType.UINT64, np.full(n, 42)), rowid=rowid)}
+        q = "select rowid, v from t order by v;"
+    elif case == "u64_max":
+        v = rng.integers(0, 50, n).astype(np.uint64)
+        v[[5, 300, 799]] = np.uint64((1 << 64) - 1)
+        tables = {"t": _rel(v=(SType.UINT64, v), w=(SType.UINT64, np.arange(n) % 3),
+                            rowid=rowid)}
+        q = "select rowid, v from t where w < 2 order by v;"
+    else:
+        f = np.round(rng.standard_normal(n), 2)
+        f[[7, 410]] = np.nan
+        tables = {"t": Relation(["f", "rowid"], [
+            Column(SType.FLOAT64, f, np.ones(n, bool)),
+            Column(SType.UINT64, np.arange(n, dtype=np.uint64), np.ones(n, bool))], n)}
+        q = "select rowid, f from t order by f;"
+    jb = _order_counters(jax_mesh_exec)
+    want = _run_jax(_jax_mesh_of(tables, P), q)
+    assert [b - a for a, b in zip(jb, _order_counters(jax_mesh_exec))] == [1, 0]
+    assert want == _run_jax(_jax_provider(tables), q)
+    before = _order_counters(mesh_exec)
+    port = _port_mesh(tables)
+    with exchange_tally(port.mesh) as tally:
+        got = _run_port(port, q)
+    assert got == want
+    assert [b - a for a, b in zip(before, _order_counters(mesh_exec))] == [1, 0]
+    ops = set(tally.by_op())
+    assert {"bucket_all_to_all", "sort_exchange"} <= ops
+    assert ("bucket_overflow" in ops) and ("order_collide" in ops)
+
+
+def test_full_scan_order_by_exchange():
+    """The sample sort's exchange: the passing rows' keys and row ids
+    (16 bytes a row) at most twice over in the buckets, and the
+    collectives of its decision."""
+    tables = _tables()["t"]
+    port = _port_mesh(tables)
+    q = "select k, v from t order by v, k;"
+    with exchange_tally(port.mesh) as tally:
+        got = _run_port(port, q)
+    assert got == _run_jax(_jax_provider(tables), q) and len(got[1]) == 3000
+    by_op = tally.by_op()
+    assert set(by_op) == {"order_collide", "order_npass", "bucket_samples",
+                          "bucket_all_to_all", "bucket_overflow"}
+    n_local = 3000 // P
+    C = int(2.0 * n_local / P)
+    assert by_op["bucket_all_to_all"] == P * (P - 1) * C * 16
 
 
 def test_full_scan_order_by_on_three_shards_goes_to_the_host():
@@ -190,34 +288,14 @@ def test_full_scan_order_by_on_three_shards_goes_to_the_host():
 
 @pytest.mark.parametrize("seed", range(40))
 def test_fuzz_seeds(seed):
-    """The port serves every seed as the JAX host engine does, but a full
-    scan ORDER BY, which raises ``not ported``."""
+    """The port serves every seed as the JAX host engine does, the full
+    scan ORDER BY seeds through the mesh sorts."""
     rng = random.Random(1000 + seed)
     host = jax_fuzz._make_table(rng)
     query = jax_fuzz._gen_query(rng)
     want = _run_jax(host, query)
-    port = _port_mesh({"t": host.get_table_data("t")})
-    rt = Runtime(device=None)
-    plan = rt.build_query_plan(rt.new_transaction(port), query)
-    try:
-        got = plan.execute(0)
-    except RuntimeError_ as e:
-        assert "not ported" in str(e) and "mesh ORDER BY" in str(e)
-        assert _full_scan_order(plan.nodes[0]), query
-        return
-    assert (got.columns, got.rows) == want, f"seed={seed} query={query!r}"
-
-
-def _full_scan_order(node):
-    from eventql_tpu_torch.plan import nodes as qn
-
-    stack = [node]
-    while stack:
-        n = stack.pop()
-        if isinstance(n, qn.OrderByNode) and isinstance(n.table, qn.SequentialScanNode):
-            return True
-        stack.extend(c for c in vars(n).values() if isinstance(c, qn.QueryTreeNode))
-    return False
+    got = _run_port(_port_mesh({"t": host.get_table_data("t")}), query)
+    assert got == want, f"seed={seed} query={query!r}"
 
 
 def test_fuzz_seeds_take_the_mesh_routes():
@@ -227,12 +305,38 @@ def test_fuzz_seeds_take_the_mesh_routes():
         host = jax_fuzz._make_table(rng)
         query = jax_fuzz._gen_query(rng)
         before = sum(_counters())
-        try:
-            _run_port(_port_mesh({"t": host.get_table_data("t")}), query)
-        except RuntimeError_:
-            continue
+        _run_port(_port_mesh({"t": host.get_table_data("t")}), query)
         routed += sum(_counters()) > before
     assert routed >= 15, f"only {routed} of 40 fuzz queries took a mesh route"
+
+
+@pytest.mark.parametrize("seed", range(30))
+def test_order_fuzz_seeds(seed):
+    """tests/test_fuzz_device_order.py's seeds (1 to 5000 rows with NULLs,
+    NaN, -0.0, infinities, INT64 extremes, u64 max, strings with the
+    literal "NULL"; one to three keys, asc / desc, WHERE, LIMIT / OFFSET)
+    over 8 shards against the JAX host engine: a full ORDER BY takes the
+    mesh sorts, a LIMIT the mesh top-k."""
+    rng = random.Random(3000 + seed)
+    host = jax_order_fuzz._make_table(rng)
+    query = jax_order_fuzz._gen_order_query(rng)
+    want = _run_jax(host, query)
+    got = _run_port(_port_mesh({"t": host.get_table_data("t")}), query)
+    assert got == want, f"seed={seed} query={query!r}"
+
+
+def test_order_fuzz_seeds_take_the_mesh_sorts():
+    ordered = bucket = 0
+    for seed in range(30):
+        rng = random.Random(3000 + seed)
+        host = jax_order_fuzz._make_table(rng)
+        query = jax_order_fuzz._gen_order_query(rng)
+        before = _order_counters(mesh_exec)
+        _run_port(_port_mesh({"t": host.get_table_data("t")}), query)
+        after = _order_counters(mesh_exec)
+        ordered += after[0] > before[0]
+        bucket += after[1] > before[1]
+    assert ordered >= 8 and 0 < bucket < ordered, (ordered, bucket)
 
 
 # -- the exchange --------------------------------------------------------------
