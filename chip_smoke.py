@@ -65,14 +65,25 @@ Phases (any mismatch or exception ends the run with a non-zero code):
      equal to numpy, with their exchange bytes by op; each kernel's first
      call on the mesh path held against its plain version; e2e ms of each
      query (CUDA events, median of 3) beside the single-card route's, and
-     the exchange bytes.
+     the exchange bytes;
+  7. process mesh: phase 6's kernel-tier functions on the same 4 shards,
+     driven by two fresh interpreters of this script (parallel/multihost.py,
+     two shards a process) sharing the card over gloo (NCCL refuses two
+     ranks on one card; with two cards or more NCCL runs too, a card a
+     process): every result equal to numpy on every process (tolerance
+     0), every call's exchange bytes by op, summed over the processes,
+     equal to phase 6's, each kernel's first call on the process mesh
+     held against its plain version; times (host clock between barriers,
+     median of 3) beside phase 6's, bytes across processes and host
+     staging time. A worker that fails or outlives its timeout is killed
+     and the script fails.
 
 With EVQL_PARENT_JOIN_CU naming an earlier join.cu whose
 evql_dim_join_gid has this one's C interface (the argument types
 kernels/join.py gives it), phase 2 builds it too and phase 5 holds its
 small-table probe against this one and times it on the same inputs.
 
-Prints a JSON line {"mesh": ...}, one {"kernels": [...]} and, as the last line,
+Prints a JSON line {"mesh": ...}, one {"multihost": ...}, one {"kernels": [...]} and, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -81,9 +92,11 @@ import inspect
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -103,7 +116,7 @@ from eventql_tpu_torch.kernels import groupby_agg as ga
 from eventql_tpu_torch.kernels import hash_groupby as hg
 from eventql_tpu_torch.kernels import join as kj
 from eventql_tpu_torch.kernels import sort as ksort
-from eventql_tpu_torch.parallel import distributed
+from eventql_tpu_torch.parallel import distributed, multihost
 from eventql_tpu_torch.parallel.mesh_provider import MeshTableProvider
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
@@ -2343,9 +2356,11 @@ def _timed_tier(mesh, calls, reps):
     return out
 
 
-def kernel_tier(device, mesh, n, reps):
-    """The kernel-tier functions at bench multijoin's shape, each equal to
-    numpy (tolerance 0) and timed with its exchange bytes:
+def tier_calls(device, mesh, n):
+    """The kernel-tier functions at bench multijoin's shape on ``mesh`` (the
+    single controller's, or a process mesh: each process checks its own
+    shards and the replicated results), each with a check against numpy
+    (tolerance 0) and a bound on the bytes it exchanges:
     distributed_sum_count, distributed_join_aggregate and
     distributed_multi_join_aggregate; the sorts (distributed_sort and
     distributed_order_permutation by (f.k1, f.v), distributed_bucket_sort
@@ -2355,10 +2370,11 @@ def kernel_tier(device, mesh, n, reps):
     distributed_count_distinct) and by (bucket, f.v), about 10^6 groups
     (distributed_grouped_aggregate_sharded)."""
     t0 = time.perf_counter()
+    table = multihost.make_global_table
     d = multijoin_data(n, seed=31)
-    sc_args = distributed.shard_table(mesh, [d["mask"], d["gid"], d["fv"]])
-    fk1, fk2, fv, fm = distributed.shard_table(mesh, [d["f_k1"], d["f_k2"], d["fv"], d["mask"]])
-    d1k, d1b = distributed.shard_table(mesh, [d["d1_keys"], d["d1_bucket"]])
+    sc_args = table(mesh, [d["mask"], d["gid"], d["fv"]])
+    fk1, fk2, fv, fm = table(mesh, [d["f_k1"], d["f_k2"], d["fv"], d["mask"]])
+    d1k, d1b = table(mesh, [d["d1_keys"], d["d1_bucket"]])
     dim_keys = torch.from_numpy(d["d1_keys"].view(np.int64)).to(device)
     dim_bucket = torch.from_numpy(d["d1_bucket"]).to(device)
     d2k = torch.from_numpy(d["d2_keys"].view(np.int64)).to(device)
@@ -2370,7 +2386,7 @@ def kernel_tier(device, mesh, n, reps):
     key = (d["f_k1"] << np.uint64(10)) | d["fv"]
     key_t = torch.from_numpy(key.view(np.int64)).to(device)
     want_sorted = torch.from_numpy(np.sort(key).view(np.int64)).to(device)
-    keyd, rowid = distributed.shard_table(mesh, [key, np.arange(n, dtype=np.int64)])
+    keyd, rowid = table(mesh, [key, np.arange(n, dtype=np.int64)])
     top_k = 100
     # the top-k again on a key over all 64 bits (the sql_topk timestamp):
     # the histogram's 24-bit prefix cannot tell keys below 2^40 apart
@@ -2378,7 +2394,7 @@ def kernel_tier(device, mesh, n, reps):
     ts_t = torch.from_numpy(ts.view(np.int64)).to(device)
     ts_top = torch.from_numpy(np.sort(np.partition(ts, n - top_k)[n - top_k:])[::-1].copy()
                               .view(np.int64)).to(device)
-    (tsd,) = distributed.shard_table(mesh, [ts])
+    (tsd,) = table(mesh, [ts])
     del ts
     # the grouped aggregates by bucket: presence of each (bucket, f.v)
     keep = d["mask"]
@@ -2396,22 +2412,40 @@ def kernel_tier(device, mesh, n, reps):
     check(k2_sums.max() < 2.0**53, "expected sum not exact in float64")
     sharded_want = [pair_occ.tolist(), pairs[pair_occ].tolist(),
                     k2_sums[pair_occ].astype(np.int64).tolist()]
-    gidd, maskd = distributed.shard_table(mesh, [d["gid"], d["mask"]])
+    gidd, maskd = table(mesh, [d["gid"], d["mask"]])
     del g, v, pairs, seen, k2_sums, key
-    log(f"phase 6: bench multijoin's tables at {n} rows and their numpy answers made in"
+    nl = n // mesh.size
+    log(f"phase {6 if mesh.group is None else 7}: bench multijoin's tables at {n} rows and"
+        f" their numpy answers made in"
         f" {time.perf_counter() - t0:.1f} s")
 
+    # each shard's output is held against the answer on ``device`` (a
+    # shard may lie on another card)
     def sort_ok(res):
         (k1s, fvs), (rows,) = res
-        got = torch.cat([(a << 10) | b for a, b in zip(k1s, fvs)])
-        return torch.equal(got, want_sorted) and torch.equal(key_t[torch.cat(rows)], got)
+        for i in mesh.local:  # shard i holds global ranks [i nl, (i + 1) nl)
+            got = ((k1s[i] << 10) | fvs[i]).to(device)
+            if not (torch.equal(got, want_sorted[i * nl:(i + 1) * nl])
+                    and torch.equal(key_t[rows[i].to(device)], got)):
+                return False
+        return True
+
+    def order_ok(perm):
+        return all(torch.equal(key_t[perm[i].to(device)], want_sorted[i * nl:(i + 1) * nl])
+                   for i in mesh.local)
 
     def bucket_ok(res):
         keys, rows, counts, overflow = res
         c = counts.tolist()
-        got = torch.cat([k[:m] for k, m in zip(keys, c)])
-        return (not bool(overflow) and torch.equal(got, want_sorted)
-                and torch.equal(key_t[torch.cat([r[:m] for r, m in zip(rows, c)])], got))
+        if bool(overflow) or sum(c) != n:
+            return False
+        for i in mesh.local:  # shard i holds the ranks after the lower shards' counts
+            at = sum(c[:i])
+            got = keys[i][:c[i]].to(device)
+            if not (torch.equal(got, want_sorted[at:at + c[i]])
+                    and torch.equal(key_t[rows[i][:c[i]].to(device)], got)):
+                return False
+        return True
 
     def topk_ok(res, keys=key_t, want_top=want_sorted[-top_k:].flip(0)):
         vals, rows = res
@@ -2427,14 +2461,16 @@ def kernel_tier(device, mesh, n, reps):
 
     def sharded_ok(res):
         (gk, fk), aggs, valid = res
-        flat = [torch.cat([t[m] for t, m in zip(col, valid)]) for col in (gk, fk, *aggs)]
-        return [(flat[0].to(torch.int64) * 1000 + flat[1]).tolist(), flat[2].tolist(),
+        flat = [multihost.fetch_sharded(mesh, [None if t is None else t[m]
+                                               for t, m in zip(col, valid)]).astype(np.int64)
+                for col in (gk, fk, *aggs)]
+        return [(flat[0] * 1000 + flat[1]).tolist(), flat[2].tolist(),
                 flat[3].tolist()] == sharded_want
 
     row_bytes_sort = 3 * 8  # two u64 keys and a row id
     stages = 3  # log2(4) (log2(4) + 1) / 2
     small = MESH_BYTES_PER_UNIT * (MJ_BUCKETS + MJ_DIM1) * mesh.size
-    calls = {
+    return {
         "distributed_sum_count": (
             lambda: distributed.distributed_sum_count(mesh, *sc_args, MJ_BUCKETS),
             lambda r: [r[0].tolist(), r[1].tolist()] == want, small),
@@ -2451,8 +2487,7 @@ def kernel_tier(device, mesh, n, reps):
             stages * n * row_bytes_sort),
         "distributed_order_permutation": (
             lambda: distributed.distributed_order_permutation(
-                mesh, [fk1, fv], [False, False], [True, True]),
-            lambda r: torch.equal(key_t[torch.cat(r)], want_sorted),
+                mesh, [fk1, fv], [False, False], [True, True]), order_ok,
             stages * n * (2 * 8 + 8)),
         "distributed_bucket_sort": (
             lambda: distributed.distributed_bucket_sort(mesh, keyd, rowid), bucket_ok,
@@ -2477,7 +2512,12 @@ def kernel_tier(device, mesh, n, reps):
                 values_unsigned=[True, True], keys_unsigned=[False, True]),
             sharded_ok, stages * MESH_BYTES_PER_UNIT * len(pair_occ) * mesh.size),
     }
-    out = _timed_tier(mesh, calls, reps)
+
+
+def kernel_tier(device, mesh, n, reps):
+    """``tier_calls`` on the single controller's mesh, each timed with its
+    exchange bytes (``_timed_tier``)."""
+    out = _timed_tier(mesh, tier_calls(device, mesh, n), reps)
     for name in out:
         out[name]["rows"] = n
     return out
@@ -2577,12 +2617,12 @@ def phase_mesh(device, tables, reps):
                 first_calls=first_calls)
 
 
-def mesh_shapes(first_calls):
+def mesh_shapes(first_calls, phase="phase 6", where="mesh"):
     """Each kernel's first call on the mesh path (a shard's rows), held
     against its plain version (tolerance 0) and timed."""
     out = {}
     for kernel, (query, kw) in first_calls.items():
-        label = f"mesh {query}"
+        label = f"{where} {query}"
         if kernel == "extract_ge":
             res = check_and_time_extract(label, kw, 5)
         elif kernel == "hash_groupby":
@@ -2593,8 +2633,199 @@ def mesh_shapes(first_calls):
             res = check_and_time(kernel, label, kw, 5)
             res.update(b1_library_ms(kw) if kernel == "groupby_agg" else b2_library_ms(kw))
         out[kernel] = dict(query=query, **res)
-    log(f"phase 6: {len(out)} kernels' first mesh calls equal to their plain versions"
+    log(f"{phase}: {len(out)} kernels' first {where} calls equal to their plain versions"
         f" (tolerance 0)")
+    return out
+
+
+# -- phase 7: the process mesh ----------------------------------------------------
+#
+# Phase 6's kernel tier again, its MESH_SHARDS shards of 2^24 rows driven by
+# MULTIHOST_PROCESSES processes (parallel/multihost.py: two shards a
+# process), each a fresh interpreter running this script with
+# MULTIHOST_FLAG. On one card both processes share it: NCCL refuses two
+# ranks on one card, so they exchange through gloo, their CUDA tensors
+# staged through pinned host memory, and the times measure the tier's cost
+# and that staging, not scaling. With two cards or more the same runs once
+# more over NCCL, one process a card.
+
+MULTIHOST_PROCESSES = 2
+MULTIHOST_FLAG = "--multihost-worker"
+MULTIHOST_TIMEOUT_S = 420  # a worker still running then is killed, and the script fails
+MULTIHOST_OPS = {"gather_lengths", "result_broadcast"}  # ops of a process mesh alone
+
+
+def multihost_worker(rank, world, port, backend, tally_path, out_path):
+    """One process of phase 7: join the group, build the tier's tables on
+    its shards, run every call once (its kernels' first calls recorded,
+    its result checked against numpy on this process's shards and the
+    replicated outputs) and MESH_REPS times more between barriers (host
+    clock to a synchronise), then hold the first calls against their
+    plain versions. Process 0 checks that every call's exchange bytes, by
+    op and summed over the processes, equal phase 6's. Writes its numbers
+    as JSON to ``out_path``."""
+    multihost.init_multihost(f"127.0.0.1:{port}", world, rank, backend=backend,
+                             timeout_s=MULTIHOST_TIMEOUT_S)
+    for name in _build.sources():
+        _build.load(name)
+    mesh = multihost.global_mesh(MESH_SHARDS // world, "cuda")
+    device = mesh.root
+    log(f"phase 7: process {rank} of {world} ({backend}) drives shards {mesh.local} on {device}")
+    calls = tier_calls(device, mesh, N_ROWS)
+    barrier = torch.distributed.barrier
+    zero_launch_counts()
+    first_calls, out = {}, {}
+    for name, (fn, ok, _bound) in calls.items():
+        before = launch_counts()
+        barrier()
+        with distributed.exchange_tally(mesh) as tally, _RecordedCalls() as rec:
+            res = fn()
+            torch.cuda.synchronize()
+        for kernel, kw in rec.calls:
+            first_calls.setdefault(kernel, (name, kw))
+        rec.calls.clear()
+        check(ok(res), f"{name}: process {rank}: result differs from the numpy answer")
+        del res
+        runs = []
+        for _ in range(MESH_REPS):
+            barrier()
+            with distributed.exchange_tally(mesh) as warm:
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+            runs.append(dict(ms=ms, stage_ms=warm.stage_ms(), cross=warm.cross_bytes()))
+        after = launch_counts()
+        out[name] = dict(exchange_bytes=tally.by_op(), runs=runs,
+                         launches={k: (after[k] - before[k]) // (MESH_REPS + 1) for k in after
+                                   if after[k] > before[k]})
+        log(f"phase 7: process {rank}: {name}: {statistics.median(r['ms'] for r in runs):.3f}"
+            f" ms (median of {MESH_REPS}), exchange {out[name]['exchange_bytes']} bytes,"
+            f" {runs[0]['cross']} across processes, staging {runs[0]['stage_ms']:.3f} ms,"
+            f" equal to numpy")
+    launches = launch_counts()
+    every = [None] * world
+    torch.distributed.all_gather_object(every, {k: v["exchange_bytes"] for k, v in out.items()})
+    if rank == 0:
+        with open(tally_path) as f:
+            single = json.load(f)
+        for name, want in single.items():
+            got = {}
+            for tallies in every:
+                for op, b in tallies[name].items():
+                    got[op] = got.get(op, 0) + b
+            check({op: b for op, b in got.items() if op not in MULTIHOST_OPS} == want
+                  and set(got) - set(want) <= MULTIHOST_OPS,
+                  f"{name}: process mesh exchange {got} bytes, phase 6 {want}")
+        log(f"phase 7: every call's exchange bytes, summed over {world} processes, equal"
+            f" phase 6's op by op")
+    shapes = mesh_shapes(first_calls, "phase 7", f"process {rank}")
+    with open(out_path, "w") as f:
+        json.dump(dict(rank=rank, backend=backend, shards=mesh.local, calls=out,
+                       launches=launches, first_calls=shapes), f)
+    torch.distributed.destroy_process_group()
+
+
+def _free_port():
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def run_multihost(backend, world, tally_path, tmp):
+    """``world`` worker processes of this script on ``backend``; their logs
+    printed, each killed at MULTIHOST_TIMEOUT_S. Fails unless every one
+    exits 0. Returns their JSON outputs, by rank."""
+    port = _free_port()
+    outs = [os.path.join(tmp, f"{backend}{r}.json") for r in range(world)]
+    logs = [open(os.path.join(tmp, f"{backend}{r}.log"), "w") for r in range(world)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), MULTIHOST_FLAG, str(r), str(world),
+         str(port), backend, tally_path, outs[r]], stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(world)]
+    deadline = time.perf_counter() + MULTIHOST_TIMEOUT_S
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    for r, p in enumerate(procs):
+        with open(os.path.join(tmp, f"{backend}{r}.log")) as f:
+            print(f.read(), end="", flush=True)
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"phase 7: {backend} process {r} failed or timed out"
+              f" (exit {p.returncode})")
+    res = []
+    for path in outs:
+        with open(path) as f:
+            res.append(json.load(f))
+    return res
+
+
+def phase_multihost(tier6):
+    """Phase 7: ``multihost_worker`` in MULTIHOST_PROCESSES processes over
+    gloo, and over NCCL where there is a card for each; every call's
+    time (the slower process's, median of MESH_REPS) beside phase 6's,
+    its exchange bytes, those that crossed processes and the staging
+    time, summed over the processes."""
+    torch.cuda.empty_cache()  # the workers share this card
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tally_path = os.path.join(tmp, "phase6_tally.json")
+        with open(tally_path, "w") as f:
+            json.dump({name: r["exchange_bytes"] for name, r in tier6.items()}, f)
+        log(f"phase 7: gloo, {MULTIHOST_PROCESSES} processes on"
+            f" {min(cards, MULTIHOST_PROCESSES)} card(s): NCCL refuses two ranks on one card,"
+            f" so processes that share a card exchange through gloo (CUDA tensors staged"
+            f" through pinned host memory)")
+        runs["gloo"] = run_multihost("gloo", MULTIHOST_PROCESSES, tally_path, tmp)
+        if cards >= MULTIHOST_PROCESSES:
+            runs["nccl"] = run_multihost("nccl", MULTIHOST_PROCESSES, tally_path, tmp)
+        else:
+            log(f"phase 7: NCCL not run: {cards} card, and NCCL needs one a process")
+    out = {"processes": MULTIHOST_PROCESSES, "shards": MESH_SHARDS, "rows": N_ROWS,
+           "cards": cards, "nccl": "nccl" in runs, "backends": {}}
+    for backend, ranks in runs.items():
+        calls = {}
+        for name, single in tier6.items():
+            per = [r["calls"][name] for r in ranks]
+            ms = [max(p["runs"][i]["ms"] for p in per) for i in range(MESH_REPS)]
+            by_op = {}
+            for p in per:
+                for op, b in p["exchange_bytes"].items():
+                    by_op[op] = by_op.get(op, 0) + b
+            calls[name] = dict(
+                ms=statistics.median(ms), runs_ms=ms, single_process_ms=single["ms"],
+                exchange_bytes=by_op,
+                cross_process_bytes=sum(p["runs"][0]["cross"] for p in per),
+                stage_ms=[sum(p["runs"][i]["stage_ms"] for p in per)
+                          for i in range(MESH_REPS)],
+                launches={k: sum(p["launches"].get(k, 0) for p in per)
+                          for k in set().union(*(p["launches"] for p in per))})
+            log(f"phase 7: {backend}: {name}: {calls[name]['ms']:.3f} ms (phase 6:"
+                f" {single['ms']:.3f}), {calls[name]['cross_process_bytes']} bytes across"
+                f" processes, staging {[f'{x:.3f}' for x in calls[name]['stage_ms']]} ms")
+        launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+        out["backends"][backend] = dict(
+            calls=calls, launches=launches,
+            first_calls={f"process {r['rank']}": r["first_calls"] for r in ranks})
+    for name in ("groupby_agg", "extract_ge", "dim_join_gid", "hash_groupby"):
+        check(out["backends"]["gloo"]["launches"][name] > 0,
+              f"{name}: not launched on the process mesh")
+    log(f"phase 7: {len(tier6)} kernel-tier calls over {MULTIHOST_PROCESSES} processes equal"
+        f" to numpy on every process in {time.perf_counter() - t0:.1f} s")
     return out
 
 
@@ -2621,6 +2852,10 @@ _REPLACES = {
 
 
 def main():
+    if len(sys.argv) == 8 and sys.argv[1] == MULTIHOST_FLAG:  # one process of phase 7
+        rank, world, port = (int(x) for x in sys.argv[2:5])
+        multihost_worker(rank, world, port, *sys.argv[5:8])
+        return
     if len(sys.argv) > 1:
         sys.exit("chip_smoke: takes no arguments; the size is the slice's")
     if not torch.cuda.is_available():
@@ -2648,19 +2883,22 @@ def main():
     del run["calls"]
     mesh_run = phase_mesh(device, run.pop("tables"), MESH_REPS)
     shard_shapes = mesh_shapes(mesh_run.pop("first_calls"))
+    multi = phase_multihost(mesh_run["kernel_tier"])
+    multi_launches = multi["backends"]["gloo"]["launches"]
     kernels = []
     for name, t in times.items():
         source, replaces, entry = _REPLACES[name]
         check(run["launches"][name] > 0, f"{name}: not launched on a main path")
         launches_by_path = {p: c[name] for p, c in run["launches_by_path"].items()}
         launches_by_path["mesh"] = mesh_run["launches"][name]
+        launches_by_path["multihost"] = multi_launches[name]
         kernels.append({
             "name": name,
             "route": "cuda",
             "source": source,
             "entry": entry,
             "replaces": replaces,
-            "launches": run["launches"][name] + mesh_run["launches"][name],
+            "launches": sum(launches_by_path.values()),
             "launches_by_path": launches_by_path,
             "max_abs_err": t["max_abs_err"],
             "ms": t["ms"],
@@ -2691,6 +2929,7 @@ def main():
     log(json.dumps({"mesh": {"shards": MESH_SHARDS, "device": str(device),
                              "queries": mesh_run["per_query"],
                              "kernel_tier": mesh_run["kernel_tier"]}}))
+    log(json.dumps({"multihost": multi}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -6,25 +6,41 @@ lies sharded on the row axis of a ``jax.sharding.Mesh`` and one XLA
 program per query runs every shard under ``jax.shard_map``; its
 collectives (all_gather, psum, ppermute over ICI) take the place of the
 reference's QUERY_PARTIALAGGR fan-out and coordinator merge (reference:
-sql/statements/select/groupby.cc:438-714). Here one Python process
-drives every shard as well (a single controller, as ``shard_map`` is):
+sql/statements/select/groupby.cc:438-714). Here a ``Mesh`` is driven
+either by one Python process (``make_mesh``: a single controller, as
+``shard_map`` is) or by several (``parallel/multihost.py``'s
+``global_mesh`` over ``torch.distributed``, as the JAX package's global
+mesh spans processes); one implementation serves both, the single
+controller being the mesh whose one process owns every shard:
 
-* a ``Mesh`` is the list of the shards' torch devices. A device may
-  repeat: several shards on one card are the counterpart of the JAX
-  package's virtual CPU mesh, and shard i of a mesh made for "cuda" lies
-  on ``cuda:(i mod visible cards)``;
-* the collectives act on the list of per-shard tensors and move them
-  with ``.to(device, non_blocking=True)`` (peer to peer between cards).
-  The one controller needs a gathered or summed table once, so
-  ``_xch_all_gather`` and ``_xch_psum`` bring it to the merge shard
-  (shard 0) instead of to every shard;
+* a ``Mesh`` lists the shards' torch devices and the process (rank) that
+  drives each. A device may repeat: several shards on one card are the
+  counterpart of the JAX package's virtual CPU mesh, and shard i of a
+  mesh made for "cuda" lies on ``cuda:(i mod visible cards)``. Every
+  per-shard argument and result is a list of ``mesh.size`` tensors,
+  indexed by global shard id; on a process mesh the entries of another
+  process's shards are None, and each function touches only
+  ``mesh.local``;
+* the collectives act on those lists. Within a process they move tensors
+  with ``.to(device, non_blocking=True)`` (peer to peer between cards);
+  between processes through ``torch.distributed`` (gloo takes host
+  tensors, so a CUDA tensor is staged through pinned host memory; NCCL
+  takes it where it is). A gathered table is needed once, so
+  ``_xch_all_gather`` brings it to the merging process (the owner of
+  shard 0), which merges it; a merged result every process returns is
+  then broadcast (``_replicate``), so that every process holds the same
+  bits (a float sum through H1's atomics follows no fixed order, so
+  merging on every process would not);
 * each collective records the bytes that cross from one shard to
   another, whether or not the two share a device, by ``op`` name, in
-  every ``exchange_tally`` open on the mesh.
-
-Multi-process ``torch.distributed`` (the port of parallel/multihost.py)
-is a later slice; NCCL refuses two ranks on one card, so on a one-card
-machine it could not exchange anything.
+  every ``exchange_tally`` open on the mesh; on a process mesh each
+  process records what its own shards send, so the sum over the
+  processes equals the single controller's tally of the same call, op by
+  op, and two ops exist there alone: ``gather_lengths`` (the row counts
+  exchanged before a gather of unequal parts) and ``result_broadcast``
+  (a merged or replicated result sent to the other processes). Each
+  record also states the bytes that crossed processes and the host
+  milliseconds spent staging them.
 
 The kernel-tier functions below run the port's hand-written kernels on
 every shard and exchange only O(num_buckets) accumulator words, O(groups)
@@ -42,10 +58,12 @@ int64 bit patterns, compared in unsigned order (ROADMAP C1).
 
 from __future__ import annotations
 
+import time
 from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from eventql_tpu_torch.core.errors import RuntimeError_
 from eventql_tpu_torch.exec.device_exec import _to_tensor
@@ -53,13 +71,31 @@ from eventql_tpu_torch.exec.torch_expr import _fold_i64
 
 
 class Mesh:
-    """The shards' devices, shard i on ``devices[i]``; shard 0 is where
-    gathered tables merge."""
+    """The shards: shard i on ``devices[i]``, driven by process (rank)
+    ``owners[i]``.
 
-    def __init__(self, devices: Sequence):
-        self.devices = [torch.device(d) for d in devices]
+    ``make_mesh`` gives the single controller: one process, ``owners``
+    all 0. ``multihost.global_mesh`` gives a process mesh: ``group`` is
+    the ``torch.distributed`` group of the owners, and ``devices[i]`` is
+    None for a shard of another process. ``local`` lists the shards this
+    process drives; the owner of shard 0 merges gathered tables
+    (``merges``); ``root``, the device of this process's first shard, is
+    where it keeps merged and replicated results."""
+
+    def __init__(self, devices: Sequence, owners: Optional[Sequence[int]] = None,
+                 rank: int = 0, group=None):
+        self.devices = [None if d is None else torch.device(d) for d in devices]
         if not self.devices:
             raise ValueError("a mesh needs at least one shard")
+        self.owners = [0] * len(self.devices) if owners is None else [int(o) for o in owners]
+        self.rank = int(rank)
+        self.local = [i for i, o in enumerate(self.owners) if o == self.rank]
+        if not self.local or any(self.devices[i] is None for i in self.local):
+            raise ValueError(f"process {self.rank} drives no shard of {self.owners}, or one"
+                             " of its shards has no device")
+        self.group = group
+        self.world = 1 if group is None else dist.get_world_size(group)
+        self.backend = None if group is None else dist.get_backend(group)
         self._tallies: List["exchange_tally"] = []
 
     @property
@@ -68,10 +104,14 @@ class Mesh:
 
     @property
     def root(self) -> torch.device:
-        return self.devices[0]
+        return self.devices[self.local[0]]
+
+    @property
+    def merges(self) -> bool:
+        return self.owners[0] == self.rank
 
     def __repr__(self):
-        return f"Mesh({[str(d) for d in self.devices]})"
+        return f"Mesh({[str(d) for d in self.devices]}, owners={self.owners})"
 
 
 def make_mesh(n_shards: int, device: str = "cuda") -> Mesh:
@@ -95,7 +135,10 @@ def make_mesh(n_shards: int, device: str = "cuda") -> Mesh:
 
 class exchange_tally:
     """Context manager: the exchange records of every collective on
-    ``mesh`` while it is open, dicts ``{"op", "bytes"}``."""
+    ``mesh`` while it is open, dicts ``{"op", "bytes", "cross",
+    "stage_ms"}``: the bytes this process's shards sent to other shards,
+    those of them that crossed processes, and the host milliseconds spent
+    staging them through host memory (gloo)."""
 
     def __init__(self, mesh: Mesh):
         self.mesh = mesh
@@ -118,53 +161,311 @@ class exchange_tally:
             out[r["op"]] = out.get(r["op"], 0) + r["bytes"]
         return out
 
+    def cross_bytes(self) -> int:
+        return sum(r["cross"] for r in self.records)
 
-def _record(mesh: Mesh, op: str, nbytes: int) -> None:
+    def stage_ms(self) -> float:
+        return sum(r["stage_ms"] for r in self.records)
+
+
+def _record(mesh: Mesh, op: str, nbytes: int, cross: int = 0, stage_ms: float = 0.0) -> None:
     for t in mesh._tallies:
-        t.records.append({"op": op, "bytes": int(nbytes)})
+        t.records.append({"op": op, "bytes": int(nbytes), "cross": int(cross),
+                          "stage_ms": stage_ms})
 
 
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _local_map(mesh: Mesh, fn) -> list:
+    """``fn(i)`` for each shard i this process drives, None for the others:
+    a per-shard list."""
+    out = [None] * mesh.size
+    for i in mesh.local:
+        out[i] = fn(i)
+    return out
+
+
+# -- between processes ------------------------------------------------------------
+
+# gloo's host buffers from this size on are pinned (faster copies to and
+# from the card; the caching host allocator keeps them for the next call)
+_PIN_BYTES = 1 << 20
+# what a replicated result's header can name
+_DTYPES = (torch.bool, torch.uint8, torch.int8, torch.int16, torch.int32, torch.int64,
+           torch.float32, torch.float64)
+
+
+class _Wire:
+    """One collective's tensors on their way to and from the backend: gloo
+    takes host tensors, so a CUDA tensor goes through (pinned) host memory
+    and back; NCCL takes tensors on this process's card. ``ms``: the host
+    milliseconds of those copies, the copies back to the card waited for
+    in ``done``."""
+
+    def __init__(self, mesh: Mesh):
+        self.host = mesh.backend == "gloo"
+        self.comm = torch.device("cpu") if self.host else mesh.root
+        self.ms = 0.0
+        self._cards = set()
+
+    def _pinned(self, nbytes: int) -> bool:
+        return self.host and torch.cuda.is_available() and nbytes >= _PIN_BYTES
+
+    def out(self, t: torch.Tensor) -> torch.Tensor:
+        t = t.contiguous()
+        if t.device == self.comm:
+            return t
+        t0 = time.perf_counter()
+        buf = torch.empty(t.shape, dtype=t.dtype, device=self.comm,
+                          pin_memory=self._pinned(_nbytes(t)))
+        buf.copy_(t)
+        self.ms += (time.perf_counter() - t0) * 1e3
+        return buf
+
+    def empty(self, shape, dtype) -> torch.Tensor:
+        """A buffer the backend receives into."""
+        n = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+        return torch.empty(shape, dtype=dtype, device=self.comm, pin_memory=self._pinned(n))
+
+    def back(self, t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+        if t.device == dev:
+            return t
+        t0 = time.perf_counter()
+        # to the host it waits: a non-blocking copy there would be read
+        # (row counts, a maximum) before the card has written it
+        to_card = dev.type == "cuda"
+        out = t.to(dev, non_blocking=to_card)
+        if to_card:
+            self._cards.add(dev)
+        self.ms += (time.perf_counter() - t0) * 1e3
+        return out
+
+    def done(self) -> None:
+        t0 = time.perf_counter()
+        for dev in self._cards:
+            torch.cuda.synchronize(dev)
+        self.ms += (time.perf_counter() - t0) * 1e3
+        self._cards.clear()
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """``t``'s bytes, flat (gloo takes no int16)."""
+    return t.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _all_reduce(mesh: Mesh, t: torch.Tensor, how=None):
+    """``t`` reduced over the processes (sum, or ``how``), on t's device,
+    and the host ms spent staging it."""
+    wire = _Wire(mesh)
+    w = wire.out(t)
+    dist.all_reduce(w, op=dist.ReduceOp.SUM if how is None else how, group=mesh.group)
+    out = wire.back(w, t.device)
+    wire.done()
+    return out, wire.ms
+
+
+def _process_rows(mesh: Mesh, rows) -> List[int]:
+    """Every shard's row count on every process, from each process's
+    ``rows`` of its own shards (a per-shard list), by one all-reduce
+    (``gather_lengths``: each process's counts sent to the others)."""
+    v = torch.zeros(mesh.size, dtype=torch.int64)
+    for i in mesh.local:
+        v[i] = int(rows[i])
+    v, ms = _all_reduce(mesh, v)
+    nb = 8 * len(mesh.local) * (mesh.world - 1)
+    _record(mesh, "gather_lengths", nb, nb, ms)
+    return v.tolist()
+
+
+def _process_max(mesh: Mesh, x: int) -> int:
+    """The largest ``x`` of the processes (``gather_lengths``)."""
+    if mesh.group is None:
+        return x
+    v, ms = _all_reduce(mesh, torch.tensor([int(x)], dtype=torch.int64), dist.ReduceOp.MAX)
+    nb = 8 * (mesh.world - 1)
+    _record(mesh, "gather_lengths", nb, nb, ms)
+    return int(v[0])
+
+
+def _replicate(mesh: Mesh, tensors, op: str = "result_broadcast",
+               nbytes: Optional[int] = None) -> list:
+    """Tensors the merging process computed (None on every other process),
+    the same bits on every process, each on its ``root``; on one process,
+    returned as they are. The merging process records their bytes once
+    for every other process under ``op`` (``nbytes`` instead, for an op
+    the single controller records), all of them as crossing; a header of
+    dtypes and shapes goes first."""
+    if mesh.group is None:
+        return list(tensors)
+    wire = _Wire(mesh)
+    src = mesh.owners[0]
+    head = torch.zeros((len(tensors), 4), dtype=torch.int64)
+    if mesh.merges:
+        for j, t in enumerate(tensors):
+            if t.dim() > 2:
+                raise ValueError(f"_replicate: a {t.dim()}-d tensor")
+            head[j, 0], head[j, 1] = _DTYPES.index(t.dtype), t.dim()
+            head[j, 2:2 + t.dim()] = torch.tensor(t.shape, dtype=torch.int64)
+        payload = torch.cat([_as_bytes(t).to(mesh.root) for t in tensors])
+    head = wire.out(head)
+    dist.broadcast(head, src, group=mesh.group)
+    shapes = [(_DTYPES[int(h[0])], tuple(int(x) for x in h[2:2 + int(h[1])]))
+              for h in head.cpu()]
+    sizes = [int(np.prod(s)) * torch.empty((), dtype=d).element_size() for d, s in shapes]
+    if mesh.merges:
+        payload = wire.out(payload)
+    else:
+        payload = wire.empty((sum(sizes),), torch.uint8)
+    if payload.numel():
+        dist.broadcast(payload, src, group=mesh.group)
+    out, at = [], 0
+    for (dtype, shape), size in zip(shapes, sizes):
+        out.append(wire.back(payload[at:at + size].clone(), mesh.root).view(dtype).reshape(shape))
+        at += size
+    wire.done()
+    if mesh.merges:
+        cross = (payload.numel() + _nbytes(head)) * (mesh.world - 1)
+        _record(mesh, op, cross if nbytes is None else nbytes, cross, wire.ms)
+    return out
+
+
+# -- the collectives ----------------------------------------------------------------
+
+
+def _xch_gather(mesh: Mesh, columns, op: str) -> list:
+    """Per column (a per-shard list; the columns of one shard have the same
+    rows) the shards' tensors concatenated in shard order, on the merging
+    process's ``root``; None on every other process. Records the bytes
+    of every part but shard 0's. Between processes the shards' row counts
+    go first (``gather_lengths``), and each process's parts travel as one
+    run of bytes padded to the longest."""
+    P = mesh.size
+    for parts in columns:
+        if len(parts) != P:
+            raise ValueError(f"{len(parts)} parts for a mesh of {P} shards")
+    moved = sum(_nbytes(parts[i]) for parts in columns for i in mesh.local if i)
+    if mesh.group is None:
+        _record(mesh, op, moved)
+        return [torch.cat([p.to(mesh.root, non_blocking=True) for p in parts])
+                for parts in columns]
+    rows = _process_rows(mesh, _local_map(mesh, lambda i: columns[0][i].shape[0]))
+    per_process = [0] * mesh.world
+    for i, r in enumerate(rows):
+        per_process[mesh.owners[i]] += r
+    longest = max(per_process)
+    wire, cross, out = _Wire(mesh), 0, []
+    for parts in columns:
+        first = parts[mesh.local[0]]
+        tail = tuple(first.shape[1:])
+        row_bytes = first.element_size() * int(np.prod(tail))
+        if longest == 0:
+            out.append(torch.empty((0,) + tail, dtype=first.dtype, device=mesh.root))
+            continue
+        mine = _as_bytes(torch.cat([parts[i] for i in mesh.local]))
+        send = torch.zeros(longest * row_bytes, dtype=torch.uint8, device=mine.device)
+        send[:mine.numel()] = mine
+        send = wire.out(send)
+        bufs = ([wire.empty((longest * row_bytes,), torch.uint8) for _ in range(mesh.world)]
+                if mesh.merges else None)
+        dist.gather(send, bufs, dst=mesh.owners[0], group=mesh.group)
+        if not mesh.merges:
+            cross += send.numel()
+            out.append(None)
+            continue
+        # shard i: its process's run, after that process's earlier shards
+        pieces, at = [], [0] * mesh.world
+        for i, r in enumerate(rows):
+            o = mesh.owners[i]
+            pieces.append(bufs[o][at[o]:at[o] + r * row_bytes])
+            at[o] += r * row_bytes
+        g = wire.back(torch.cat(pieces), mesh.root)
+        out.append(g.view(first.dtype).reshape((-1,) + tail))
+    wire.done()
+    _record(mesh, op, moved, cross, wire.ms)
+    return out
+
+
 def _xch_all_gather(mesh: Mesh, parts: Sequence[torch.Tensor],
                     op: str = "all_gather") -> torch.Tensor:
-    """The shards' tensors, concatenated in shard order on the merge
-    shard's device. Records the bytes of every part but shard 0's."""
-    if len(parts) != mesh.size:
-        raise ValueError(f"{len(parts)} parts for a mesh of {mesh.size} shards")
-    _record(mesh, op, sum(_nbytes(p) for p in parts[1:]))
-    return torch.cat([p.to(mesh.root, non_blocking=True) for p in parts])
+    """The shards' tensors, concatenated in shard order on the merging
+    process's ``root`` (None on any other process). Records the bytes of
+    every part but shard 0's."""
+    return _xch_gather(mesh, [parts], op)[0]
 
 
 def _xch_psum(mesh: Mesh, parts: Sequence[torch.Tensor], op: str = "psum") -> torch.Tensor:
     """The elementwise sum of the shards' equally shaped tensors (integers
-    wrap mod 2^64) on the merge shard's device. Records the bytes of
-    every part but shard 0's."""
+    wrap mod 2^64) on this process's ``root``: the process's own parts
+    summed, then one all-reduce over the processes, so that every process
+    holds the sum. Records the bytes of every part but shard 0's, and on
+    a process mesh the sum's way back to the other processes
+    (``result_broadcast``)."""
     if len(parts) != mesh.size:
         raise ValueError(f"{len(parts)} parts for a mesh of {mesh.size} shards")
-    _record(mesh, op, sum(_nbytes(p) for p in parts[1:]))
-    out = parts[0].to(mesh.root, copy=True)
-    for p in parts[1:]:
-        out += p.to(mesh.root, non_blocking=True)
+    moved = sum(_nbytes(parts[i]) for i in mesh.local if i)
+    out = parts[mesh.local[0]].to(mesh.root, copy=True)
+    for i in mesh.local[1:]:
+        out += parts[i].to(mesh.root, non_blocking=True)
+    if mesh.group is None:
+        _record(mesh, op, moved)
+        return out
+    out, ms = _all_reduce(mesh, out)
+    _record(mesh, op, moved, 0 if mesh.merges else _nbytes(out), ms)
+    if mesh.merges:
+        back = _nbytes(out) * (mesh.world - 1)
+        _record(mesh, "result_broadcast", back, back)
     return out
 
 
 def _xch_ppermute(mesh: Mesh, parts: Sequence[torch.Tensor], perm,
                   op: str = "ppermute") -> List[torch.Tensor]:
     """``out[d] = parts[s]`` moved to shard d's device for each pair
-    ``(s, d)`` of ``perm`` (a permutation of the shards). Records the
-    bytes of every pair with s != d."""
+    ``(s, d)`` of ``perm`` (a permutation of the shards), every part of
+    one shape and dtype (as in ``ppermute``). A pair within one process
+    moves with ``.to()``, a pair across processes by a send and a receive,
+    all of a call in one batch; a received part is placed by its source.
+    Records the bytes of every pair with s != d (by the process of s)."""
     if sorted(d for _s, d in perm) != list(range(mesh.size)):
         raise ValueError(f"{perm} is not a permutation of {mesh.size} shards")
     out: List[Optional[torch.Tensor]] = [None] * mesh.size
-    moved = 0
-    for s, d in perm:
-        out[d] = parts[s].to(mesh.devices[d], non_blocking=True)
-        moved += _nbytes(parts[s]) if s != d else 0
-    _record(mesh, op, moved)
+    moved = cross = 0
+    wire, ops, landed = _Wire(mesh), [], []
+    for tag, (s, d) in enumerate(perm):
+        mine_s, mine_d = mesh.owners[s] == mesh.rank, mesh.owners[d] == mesh.rank
+        if mine_s and s != d:
+            moved += _nbytes(parts[s])
+        if mine_s and mine_d:
+            out[d] = parts[s].to(mesh.devices[d], non_blocking=True)
+        elif mine_s:
+            b = wire.out(_as_bytes(parts[s]))
+            cross += b.numel()
+            ops.append(dist.P2POp(dist.isend, b, mesh.owners[d], group=mesh.group, tag=tag))
+        elif mine_d:
+            like = parts[d]
+            b = wire.empty((_nbytes(like),), torch.uint8)
+            ops.append(dist.P2POp(dist.irecv, b, mesh.owners[s], group=mesh.group, tag=tag))
+            landed.append((d, b, like))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    for d, b, like in landed:
+        out[d] = wire.back(b, mesh.devices[d]).view(like.dtype).reshape(like.shape)
+    wire.done()
+    _record(mesh, op, moved, cross, wire.ms)
     return out
+
+
+def _xch_broadcast(mesh: Mesh, t: Optional[torch.Tensor], op: str) -> dict:
+    """``t`` from the merging process (None on the others) on every
+    distinct device of this process's shards. The merging process
+    records its bytes once for every shard but shard 0."""
+    if mesh.group is None:
+        _record(mesh, op, _nbytes(t) * (mesh.size - 1))
+    else:
+        (t,) = _replicate(mesh, [t], op, None if t is None else _nbytes(t) * (mesh.size - 1))
+    return _replicas(mesh, t)
 
 
 # -- compact partials and their merge ------------------------------------------
@@ -219,8 +520,8 @@ def _local_partial(keys, spans, n, mask, values, kinds, unsigned, distinct, dspa
 
 
 class _Merged(NamedTuple):
-    """The merged groups on the merge shard, in the order of their first
-    global rows."""
+    """The merged groups, on this process's ``root`` (on a process mesh the
+    same bits on every process), in the order of their first global rows."""
 
     keys: list
     counts: torch.Tensor
@@ -230,24 +531,44 @@ class _Merged(NamedTuple):
 
 
 def _merge(mesh, parts, spans, kinds, unsigned, dspans, op) -> Optional[_Merged]:
-    """Gather the shards' compact partials and merge them with H1 on the
-    merge shard: counts and sums add, min / max by ``kinds`` (the local
-    kinds; a mean's sum adds), first rows by min. count_distinct: the
-    gathered pairs are deduplicated, then counted per key. None when no
-    shard has a group."""
+    """Gather the shards' compact partials (``parts``, a per-shard list) and
+    merge them with H1 on the merging process: counts and sums add, min /
+    max by ``kinds`` (the local kinds; a mean's sum adds), first rows by
+    min. count_distinct: the gathered pairs are deduplicated, then
+    counted per key. On a process mesh the merged groups are then
+    broadcast, so that every process returns them. None when no shard
+    has a group."""
+    nk, na = len(spans), len(kinds)
+    groups = _xch_gather(
+        mesh, [[None if p is None else p.keys[j] for p in parts] for j in range(nk)]
+        + [[None if p is None else p.counts for p in parts]]
+        + [[None if p is None else p.aggs[j] for p in parts] for j in range(na)]
+        + [[None if p is None else p.first for p in parts]], op)
+    pairs = [_xch_gather(
+        mesh, [[None if p is None else p.pairs[j][0][i] for p in parts] for i in range(nk + 1)]
+        + [[None if p is None else p.pairs[j][1] for p in parts]], op)
+        for j in range(len(dspans))]
+    fields = (_merge_gathered(groups, pairs, spans, kinds, unsigned, dspans) if mesh.merges
+              else [None] * (nk + na + 2 + len(dspans)))
+    fields = _replicate(mesh, fields)
+    if fields[nk].shape[0] == 0:
+        return None
+    return _Merged(fields[:nk], fields[nk], fields[nk + 1:nk + 1 + na], fields[nk + 1 + na],
+                   fields[nk + 2 + na:])
+
+
+def _merge_gathered(groups, pairs, spans, kinds, unsigned, dspans) -> list:
+    """``_merge``'s H1 work on the gathered partials: the merged keys,
+    counts, aggregates, first rows and count_distinct counts, as one list
+    (the gathered, empty columns where no shard has a group)."""
     from eventql_tpu_torch.kernels.hash_groupby import hash_groupby
 
-    def gather(rows):
-        return _xch_all_gather(mesh, rows, op)
-
     nk = len(spans)
-    keys = [gather([p.keys[j] for p in parts]) for j in range(nk)]
-    counts = gather([p.counts for p in parts])
-    aggs = [gather([p.aggs[j] for p in parts]) for j in range(len(kinds))]
-    first = gather([p.first for p in parts])
+    keys, counts, aggs, first = groups[:nk], groups[nk], groups[nk + 1:-1], groups[-1]
     G = counts.shape[0]
     if G == 0:
-        return None
+        return [*groups, *(torch.zeros(0, dtype=torch.int64, device=counts.device)
+                           for _ in dspans)]
     merge_kinds = ["sum", *(_MERGE_KIND.get(k, "sum") for k in kinds), "min"]
     res = hash_groupby(keys, G, None, [counts, *aggs, first], merge_kinds,
                        [False, *unsigned, False], (), spans)
@@ -255,12 +576,10 @@ def _merge(mesh, parts, spans, kinds, unsigned, dspans, op) -> Optional[_Merged]
     m_first = res.aggregates[-1][occ]
     order = occ[torch.argsort(m_first)]
     rows = res.first_index[order]
-    merged = _Merged([k[rows] for k in keys], res.aggregates[0][order],
-                     [a[order] for a in res.aggregates[1:-1]], res.aggregates[-1][order], [])
+    out = [*(k[rows] for k in keys), res.aggregates[0][order],
+           *(a[order] for a in res.aggregates[1:-1]), res.aggregates[-1][order]]
     del res
-    for j, dspan in enumerate(dspans):
-        pkeys = [gather([p.pairs[j][0][i] for p in parts]) for i in range(nk + 1)]
-        pfirst = gather([p.pairs[j][1] for p in parts])
+    for (*pkeys, pfirst), dspan in zip(pairs, dspans):
         # the same pair on several shards: once, with its first row
         dedup = hash_groupby(pkeys, pfirst.shape[0], None, [pfirst], ["min"], None, (),
                              [*spans, dspan])
@@ -271,10 +590,10 @@ def _merge(mesh, parts, spans, kinds, unsigned, dspans, op) -> Optional[_Merged]
         occ = torch.nonzero(per_key.counts > 0).flatten()
         # a key's first pair row is the key's first row: the order above
         occ = occ[torch.argsort(per_key.aggregates[0][occ])]
-        if occ.shape[0] != merged.counts.shape[0]:
+        if occ.shape[0] != order.shape[0]:
             raise AssertionError("count_distinct groups differ from the merged groups")
-        merged.distinct.append(per_key.counts[occ])
-    return merged
+        out.append(per_key.counts[occ])
+    return out
 
 
 def padded_rows(n: int, n_shards: int) -> int:
@@ -285,10 +604,11 @@ def padded_rows(n: int, n_shards: int) -> int:
 
 def shard_table(mesh: Mesh, arrays) -> List[List[torch.Tensor]]:
     """Host arrays (or CPU tensors) as equal row blocks, block i on shard
-    i's device; each array is padded with zeros to ``padded_rows``. A
-    padding row of a fact table must be masked out by the caller (a
-    ``False`` mask padding does it); unsigned arrays travel as the
-    signed type of their width."""
+    i's device (on a process mesh this process places only its own
+    shards' blocks, None for the others); each array is padded with zeros
+    to ``padded_rows``. A padding row of a fact table must be masked out
+    by the caller (a ``False`` mask padding does it); unsigned arrays
+    travel as the signed type of their width."""
     out = []
     for a in arrays:
         t = a if isinstance(a, torch.Tensor) else _to_tensor(np.asarray(a), "cpu")
@@ -297,15 +617,15 @@ def shard_table(mesh: Mesh, arrays) -> List[List[torch.Tensor]]:
         if n_p > n:
             t = torch.cat([t, torch.zeros(n_p - n, dtype=t.dtype, device=t.device)])
         local = n_p // mesh.size
-        out.append([t[i * local:(i + 1) * local].to(dev)
-                    for i, dev in enumerate(mesh.devices)])
+        out.append(_local_map(mesh, lambda i: t[i * local:(i + 1) * local].to(mesh.devices[i])))
     return out
 
 
 def _replicas(mesh: Mesh, t: torch.Tensor) -> dict:
-    """``t`` on every distinct device of the mesh (a replicated input,
-    as a ``P()`` input of shard_map: placed, not exchanged)."""
-    return {dev: t.to(dev) for dev in dict.fromkeys(mesh.devices)}
+    """``t`` on every distinct device of this process's shards (a
+    replicated input, as a ``P()`` input of shard_map: placed, not
+    exchanged; on a process mesh every process passes the same ``t``)."""
+    return {dev: t.to(dev) for dev in dict.fromkeys(mesh.devices[i] for i in mesh.local)}
 
 
 def _probe(fact_keys, dim_keys, dim_bucket, n, probe):
@@ -333,8 +653,8 @@ def _sum_count(gid, n, mask, values, num_buckets):
 
 
 def _psum_tables(mesh, tables, op):
-    counts = _xch_psum(mesh, [t[0] for t in tables], op)
-    sums = _xch_psum(mesh, [t[1] for t in tables], op)
+    counts = _xch_psum(mesh, [None if t is None else t[0] for t in tables], op)
+    sums = _xch_psum(mesh, [None if t is None else t[1] for t in tables], op)
     return counts, sums
 
 
@@ -346,10 +666,10 @@ def distributed_sum_count(mesh: Mesh, mask, gid, values, num_buckets: int):
 
     mask, gid, values: lists of per-shard tensors (bool, int32 buckets,
     u64 values as int64 or narrower unsigned streams). Returns (counts,
-    sums), int64[num_buckets] on the merge shard's device; sums are
-    exact mod 2^64."""
-    tables = [_sum_count(g, g.shape[0], m, v, num_buckets)
-              for m, g, v in zip(mask, gid, values)]
+    sums), int64[num_buckets] on this process's ``root`` (on a process
+    mesh every process holds them); sums are exact mod 2^64."""
+    tables = _local_map(mesh, lambda i: _sum_count(gid[i], gid[i].shape[0], mask[i], values[i],
+                                                   num_buckets))
     return _psum_tables(mesh, tables, "groupby_psum")
 
 
@@ -371,13 +691,14 @@ def distributed_join_aggregate(mesh: Mesh, fact_keys, fact_values, fact_mask,
     dim_bucket int32 [D] in [0, num_buckets). Returns (counts, sums) as
     ``distributed_sum_count``."""
     dk, db = _replicas(mesh, dim_keys), _replicas(mesh, dim_bucket)
-    tables = []
-    for fk, fv, fm in zip(fact_keys, fact_values, fact_mask):
-        dev = fk.device
-        gid = _probe(fk, dk[dev], db[dev], fk.shape[0], probe)
-        tables.append(_sum_count(gid, fk.shape[0], fm, fv, num_buckets))
-        del gid  # this shard's scratch goes before the next shard's
-    return _psum_tables(mesh, tables, "join_psum")
+
+    def table(i):
+        fk = fact_keys[i]
+        # this shard's bucket ids go before the next shard's are made
+        gid = _probe(fk, dk[fk.device], db[fk.device], fk.shape[0], probe)
+        return _sum_count(gid, fk.shape[0], fact_mask[i], fact_values[i], num_buckets)
+
+    return _psum_tables(mesh, _local_map(mesh, table), "join_psum")
 
 
 def distributed_multi_join_aggregate(mesh: Mesh, fact_k1, fact_k2, fact_values,
@@ -404,25 +725,26 @@ def distributed_multi_join_aggregate(mesh: Mesh, fact_k1, fact_k2, fact_values,
     d2k, d2f = _replicas(mesh, dim2_keys), _replicas(mesh, dim2_flag)
     ring = [(i, (i + 1) % P) for i in range(P)]
     # join 2 (on every shard): WHERE d2.flag = 1
-    masks = []
-    for fk2, fm in zip(fact_k2, fact_mask):
-        dev = fk2.device
-        active = _probe(fk2, d2k[dev], d2f[dev], fk2.shape[0], probe) == 1
-        masks.append(active if fm is None else fm & active)
-    # join 1: the dim1 shards go around the ring
-    gid = [torch.full((fk.shape[0],), -1, dtype=torch.int32, device=fk.device)
-           for fk in fact_k1]
+    def where(i):
+        fk2, fm = fact_k2[i], fact_mask[i]
+        active = _probe(fk2, d2k[fk2.device], d2f[fk2.device], fk2.shape[0], probe) == 1
+        return active if fm is None else fm & active
+
+    masks = _local_map(mesh, where)
+    # join 1: the dim1 shards go around the ring (across processes too)
+    gid = _local_map(mesh, lambda i: torch.full((fact_k1[i].shape[0],), -1, dtype=torch.int32,
+                                                device=fact_k1[i].device))
     dk, db = list(dim1_keys), list(dim1_bucket)
     for step in range(P):
-        for s in range(P):
+        for s in mesh.local:
             g = _probe(fact_k1[s], dk[s], db[s], fact_k1[s].shape[0], probe)
             gid[s] = torch.maximum(gid[s], g)
             del g
         if step + 1 < P:
             dk = _xch_ppermute(mesh, dk, ring, op="join_ring")
             db = _xch_ppermute(mesh, db, ring, op="join_ring")
-    tables = [_sum_count(g, g.shape[0], m, fv, num_buckets)
-              for g, m, fv in zip(gid, masks, fact_values)]
+    tables = _local_map(mesh, lambda i: _sum_count(gid[i], gid[i].shape[0], masks[i],
+                                                   fact_values[i], num_buckets))
     return _psum_tables(mesh, tables, "join_psum")
 
 
@@ -498,10 +820,12 @@ def _sorted_run(cols, nk: int):
 
 
 def _shard_lengths(mesh: Mesh, columns, what: str) -> int:
-    """The rows a shard of ``columns`` (lists of per-shard tensors) holds,
-    the same on every shard."""
-    lengths = {c.shape[0] for col in columns for c in col}
-    if len(lengths) != 1 or any(len(col) != mesh.size for col in columns):
+    """The rows a shard of ``columns`` (per-shard lists) holds, the same on
+    every shard (on a process mesh: every shard of this process)."""
+    if any(len(col) != mesh.size for col in columns):
+        raise ValueError(f"{what}: every column needs {mesh.size} shards of equal length")
+    lengths = {col[i].shape[0] for col in columns for i in mesh.local}
+    if len(lengths) != 1:
         raise ValueError(f"{what}: every column needs {mesh.size} shards of equal length")
     return lengths.pop()
 
@@ -545,42 +869,45 @@ def distributed_sort(mesh: Mesh, sort_keys, payloads=(), key_bounds=None):
     _shard_lengths(mesh, keys + pays, "distributed_sort")
     los = [None] * nk
     for i, b in enumerate(key_bounds or ()):
-        if b is not None and keys[i][0].dtype == torch.int64 and b[1] - b[0] <= 0xFFFFFFFF:
+        if (b is not None and keys[i][mesh.local[0]].dtype == torch.int64
+                and b[1] - b[0] <= 0xFFFFFFFF):
             los[i] = b[0]
-            keys[i] = [_narrow_u32(k, b[0]) for k in keys[i]]
-    runs = [_sorted_run([c[s] for c in keys + pays], nk) for s in range(P)]
+            keys[i] = _local_map(mesh, lambda s, c=keys[i], lo=b[0]: _narrow_u32(c[s], lo))
+    runs = _local_map(mesh, lambda s: _sorted_run([c[s] for c in keys + pays], nk))
+    ncols = nk + len(pays)
     k = 2
     while k <= P:
         j = k // 2
         while j >= 1:
             perm = [(i, i ^ j) for i in range(P)]
-            moved = [_xch_ppermute(mesh, [r[c] for r in runs], perm, "sort_exchange")
-                     for c in range(len(runs[0]))]
-            new = []
-            for i in range(P):
+            moved = [_xch_ppermute(mesh, [None if r is None else r[c] for r in runs], perm,
+                                   "sort_exchange")
+                     for c in range(ncols)]
+            new = [None] * P
+            for i in mesh.local:
                 mine, other = runs[i], [m[i].flip(0) for m in moved]
                 lt, eq = _lex_lt(mine[:nk], other[:nk])
                 # shard i's block ascends iff bit k of i is clear; it keeps
                 # the low half iff that direction matches its place in the pair
                 keep_low = ((i & j) == 0) == ((i & k) == 0)
                 take = (lt | eq) if keep_low else ~lt
-                new.append(_sorted_run([torch.where(take, a, b) for a, b in zip(mine, other)],
-                                       nk))
+                new[i] = _sorted_run([torch.where(take, a, b) for a, b in zip(mine, other)], nk)
                 del mine, other, lt, eq, take
             runs, moved = new, None
             j //= 2
         k *= 2
-    out_keys = [[r[c] for r in runs] for c in range(nk)]
+    out = [_local_map(mesh, lambda s, c=c: runs[s][c]) for c in range(ncols)]
     for c, lo in enumerate(los):
         if lo is not None:
-            out_keys[c] = [_widen_u32(t, lo) for t in out_keys[c]]
-    return tuple(out_keys), tuple([r[nk + c] for r in runs] for c in range(len(pays)))
+            out[c] = _local_map(mesh, lambda s, t=out[c], lo=lo: _widen_u32(t[s], lo))
+    return tuple(out[:nk]), tuple(out[nk:])
 
 
 def _row_ids(mesh: Mesh, n_local: int) -> List[torch.Tensor]:
-    """Each shard's global row ids (int64)."""
-    return [torch.arange(n_local, dtype=torch.int64, device=dev) + s * n_local
-            for s, dev in enumerate(mesh.devices)]
+    """Each shard's global row ids (int64), on every process the global
+    ones."""
+    return _local_map(mesh, lambda s: torch.arange(n_local, dtype=torch.int64,
+                                                   device=mesh.devices[s]) + s * n_local)
 
 
 def distributed_order_permutation(mesh: Mesh, columns, descendings, unsigneds=None):
@@ -597,20 +924,14 @@ def distributed_order_permutation(mesh: Mesh, columns, descendings, unsigneds=No
     if unsigneds is None:
         unsigneds = (False,) * len(columns)
     n_local = _shard_lengths(mesh, columns, "distributed_order_permutation")
-    bounds = [_sortkey_bounds(col[0].dtype, u, d)
+    bounds = [_sortkey_bounds(col[mesh.local[0]].dtype, u, d)
               for col, d, u in zip(columns, descendings, unsigneds)]
-    keys = [make_sort_keys([col[s] for col in columns], descendings, unsigneds)
-            for s in range(mesh.size)]
-    _, (perm,) = distributed_sort(mesh, [[k[c] for k in keys] for c in range(len(columns))],
-                                  (_row_ids(mesh, n_local),), key_bounds=bounds)
+    keys = _local_map(mesh, lambda s: make_sort_keys([col[s] for col in columns], descendings,
+                                                     unsigneds))
+    _, (perm,) = distributed_sort(
+        mesh, [[None if k is None else k[c] for k in keys] for c in range(len(columns))],
+        (_row_ids(mesh, n_local),), key_bounds=bounds)
     return perm
-
-
-def _xch_broadcast(mesh: Mesh, t: torch.Tensor, op: str) -> dict:
-    """``t`` from the merge shard on every distinct device of the mesh.
-    Records its bytes once for every shard but shard 0."""
-    _record(mesh, op, _nbytes(t) * (mesh.size - 1))
-    return _replicas(mesh, t)
 
 
 def distributed_bucket_sort(mesh: Mesh, sort_key, payload=None, oversample: int = 64,
@@ -642,9 +963,11 @@ def distributed_bucket_sort(mesh: Mesh, sort_key, payload=None, oversample: int 
 
     Returns (keys, payloads or None, counts, overflow): per shard P * C
     keys in order with the sentinel past its count, the payload alike
-    (padded with 0), counts int64[P] and overflow a bool tensor, both on
-    the merge shard. On overflow the buckets lost rows: the caller falls
-    back to ``distributed_sort``, which is always exact.
+    (padded with 0), counts int64[P] (each shard's count, as the JAX
+    function's sharded ``counts``) and overflow a bool tensor, both on
+    this process's ``root`` (on a process mesh, every process holds
+    both). On overflow the buckets lost rows: the caller falls back to
+    ``distributed_sort``, which is always exact.
 
     ``oversample`` and ``capacity_factor`` keep the JAX function's
     contract; the port's SQL route takes their defaults."""
@@ -653,19 +976,23 @@ def distributed_bucket_sort(mesh: Mesh, sort_key, payload=None, oversample: int 
     P = mesh.size
     cols = [sort_key] + ([payload] if payload is not None else [])
     n_local = _shard_lengths(mesh, cols, "distributed_bucket_sort")
-    if sort_key[0].dtype != torch.int64:
+    if sort_key[mesh.local[0]].dtype != torch.int64:
         raise TypeError("distributed_bucket_sort: the key must be u64 (int64 bits)")
     C = max(1, int(capacity_factor * n_local / P))
     s = min(oversample, n_local)
-    runs = [_sorted_run([c[i] for c in cols], 1) for i in range(P)]
+    runs = _local_map(mesh, lambda i: _sorted_run([c[i] for c in cols], 1))
     sample_at = (torch.arange(s, dtype=torch.int64) * n_local) // s
-    samples = [r[0][sample_at.to(r[0].device)] for r in runs]
-    gathered = _signed_order(_xch_all_gather(mesh, samples, "bucket_samples"))
-    q = (torch.arange(1, P, dtype=torch.int64) * (P * s)) // P
-    splitters = _xch_broadcast(mesh, torch.sort(gathered)[0][q.to(gathered.device)],
-                               "bucket_samples")
-    sends, overflows = [], []
-    for i, r in enumerate(runs):
+    samples = _local_map(mesh, lambda i: runs[i][0][sample_at.to(runs[i][0].device)])
+    gathered = _xch_all_gather(mesh, samples, "bucket_samples")
+    quantiles = None
+    if mesh.merges:
+        gathered = _signed_order(gathered)
+        q = (torch.arange(1, P, dtype=torch.int64) * (P * s)) // P
+        quantiles = torch.sort(gathered)[0][q.to(gathered.device)]
+    splitters = _xch_broadcast(mesh, quantiles, "bucket_samples")
+    sends, overflows = [None] * P, [None] * P
+    for i in mesh.local:
+        r = runs[i]
         dev = r[0].device
         skey = _signed_order(r[0])
         # the sentinel's place in signed order is INT64_MAX
@@ -675,40 +1002,58 @@ def distributed_bucket_sort(mesh: Mesh, sort_key, payload=None, oversample: int 
         ends = torch.minimum(torch.cat([starts[1:], n_valid]), n_valid)
         starts = torch.minimum(starts, n_valid)
         sizes = ends - starts
-        overflows.append((sizes > C).any().to(torch.int32))
+        overflows[i] = (sizes > C).any().to(torch.int32)
         slot = torch.arange(C, dtype=torch.int64, device=dev)
         pos = torch.clamp(starts[:, None] + slot[None, :], max=n_local - 1)
         inside = slot[None, :] < sizes[:, None]
         # one tensor a bucket, so that each goes once its destination has it
-        sends.append([[torch.where(inside[j], c[pos[j]], torch.full((), fill, dtype=c.dtype,
-                                                                    device=dev))
-                       for j in range(P)] for c, fill in zip(r, (SENTINEL, 0))])
+        sends[i] = [[torch.where(inside[j], c[pos[j]], torch.full((), fill, dtype=c.dtype,
+                                                                  device=dev))
+                     for j in range(P)] for c, fill in zip(r, (SENTINEL, 0))]
         runs[i] = None  # this shard's run goes before the next shard's buckets come
         del r, skey, pos, inside
-    # destination d receives block d of every source, in source order
-    recv = [[[None] * P for _ in cols] for _ in range(P)]
-    for d in range(P):
+    # destination d receives block d of every source, placed by source
+    recv = _local_map(mesh, lambda d: [[None] * P for _ in cols])
+    for d in mesh.local:
         for c in range(len(cols)):
             recv[d][c][d] = sends[d][c][d]
-    for dist in range(1, P):
-        perm = [(i, (i - dist) % P) for i in range(P)]
+    for hop in range(1, P):
+        perm = [(i, (i - hop) % P) for i in range(P)]
         for c in range(len(cols)):
-            got = _xch_ppermute(mesh, [sends[i][c][(i - dist) % P] for i in range(P)], perm,
-                                "bucket_all_to_all")
-            for d in range(P):
-                recv[d][c][(d + dist) % P] = got[d]
+            got = _xch_ppermute(
+                mesh, [None if sends[i] is None else sends[i][c][(i - hop) % P]
+                       for i in range(P)], perm, "bucket_all_to_all")
+            for d in mesh.local:
+                recv[d][c][(d + hop) % P] = got[d]
             del got
     del sends
-    outs, ms = [], []
-    for d in range(P):
+    outs, ms = [None] * P, [None] * P
+    for d in mesh.local:
         bucket = [torch.cat(blocks) for blocks in recv[d]]
         recv[d] = None
-        ms.append((bucket[0] != SENTINEL).sum().reshape(1))
-        outs.append(_sorted_run(bucket, 1))
-    counts = torch.cat([m.to(mesh.root) for m in ms])
+        ms[d] = (bucket[0] != SENTINEL).sum().reshape(1)
+        outs[d] = _sorted_run(bucket, 1)
+    counts = _shard_counts(mesh, ms)
     overflow = _xch_psum(mesh, overflows, "bucket_overflow") > 0
-    return ([o[0] for o in outs], [o[1] for o in outs] if payload is not None else None,
+    return (_local_map(mesh, lambda d: outs[d][0]),
+            _local_map(mesh, lambda d: outs[d][1]) if payload is not None else None,
             counts, overflow)
+
+
+def _shard_counts(mesh: Mesh, ms) -> torch.Tensor:
+    """One number a shard (a per-shard list of int64 [1]) as int64 [P] on
+    this process's ``root``: read where the single controller holds them
+    all; on a process mesh every process's own entries summed over the
+    processes (``result_broadcast``: each process's numbers to the others)."""
+    if mesh.group is None:
+        return torch.cat([m.to(mesh.root) for m in ms])
+    v = torch.zeros(mesh.size, dtype=torch.int64, device=mesh.root)
+    for i in mesh.local:
+        v[i:i + 1] = ms[i]
+    v, stage_ms = _all_reduce(mesh, v)
+    nb = 8 * len(mesh.local) * (mesh.world - 1)
+    _record(mesh, "result_broadcast", nb, nb, stage_ms)
+    return v
 
 
 # -- kernel-tier top-k and grouped aggregates ---------------------------------------
@@ -727,7 +1072,8 @@ def distributed_topk(mesh: Mesh, sort_key, payload_index, k: int, key_bound=None
     32-bit span clamps every key to the bound and runs the top-k on
     ``key - lo`` as a u32 (the JAX function's contract; no route of the
     port passes a bound). Returns (keys int64 [k] as u64 bits, row ids
-    [k]) on the merge shard."""
+    [k]) on this process's ``root``: the merging process picks them, and
+    on a process mesh broadcasts them to the others."""
     from eventql_tpu_torch.kernels.sort import _signed_order, topk_permutation
 
     _shard_lengths(mesh, [sort_key, payload_index], "distributed_topk")
@@ -735,18 +1081,18 @@ def distributed_topk(mesh: Mesh, sort_key, payload_index, k: int, key_bound=None
     if key_bound is not None and key_bound[1] - key_bound[0] <= 0xFFFFFFFF:
         lo = key_bound[0]
         flo, fhi = _fold_i64(key_bound[0]) ^ -_SIGN63, _fold_i64(key_bound[1]) ^ -_SIGN63
-        sort_key = [_narrow_u32(torch.clamp(_signed_order(t), flo, fhi) ^ -_SIGN63, lo)
-                    for t in sort_key]
-    vals, rows = [], []
-    for key_l, idx_l in zip(sort_key, payload_index):
-        pos = topk_permutation(key_l, min(k, key_l.shape[0]))
-        vals.append(key_l[pos])
-        rows.append(idx_l[pos])
-    all_vals = _xch_all_gather(mesh, vals, "topk_gather")
-    all_rows = _xch_all_gather(mesh, rows, "topk_gather")
-    top = topk_permutation(all_vals, k)
-    out = all_vals[top]
-    return (out if lo is None else _widen_u32(out, lo)), all_rows[top]
+        sort_key = _local_map(mesh, lambda i, keys=sort_key: _narrow_u32(
+            torch.clamp(_signed_order(keys[i]), flo, fhi) ^ -_SIGN63, lo))
+    pos = _local_map(mesh, lambda i: topk_permutation(sort_key[i], min(k, sort_key[i].shape[0])))
+    all_vals, all_rows = _xch_gather(
+        mesh, [_local_map(mesh, lambda i: sort_key[i][pos[i]]),
+               _local_map(mesh, lambda i: payload_index[i][pos[i]])], "topk_gather")
+    out = None
+    if mesh.merges:
+        top = topk_permutation(all_vals, k)
+        out = [all_vals[top], all_rows[top]]
+    vals, rows = _replicate(mesh, out or [None, None])
+    return (vals if lo is None else _widen_u32(vals, lo)), rows
 
 
 def _agg_streams(value_arrays, agg_kinds, values_unsigned):
@@ -767,14 +1113,12 @@ def _shard_partials(mesh, mask, key_arrays, value_arrays, idx, kinds, unsigned,
     """Every shard's compact H1 partial (no key spans: the hash tier)."""
     n_local = _shard_lengths(mesh, list(key_arrays), "kernel-tier aggregate")
     nk = len(key_arrays)
-    parts = []
-    for s in range(mesh.size):
-        parts.append(_local_partial(
-            [k[s] for k in key_arrays], [None] * nk, n_local,
-            None if mask is None else mask[s], [value_arrays[j][s] for j in idx], kinds,
-            unsigned, [] if distinct is None else [distinct[s]],
-            [] if distinct is None else [None], s * n_local))
-    return parts
+    # each shard's first global row: s * n_local on every process
+    return _local_map(mesh, lambda s: _local_partial(
+        [k[s] for k in key_arrays], [None] * nk, n_local,
+        None if mask is None else mask[s], [value_arrays[j][s] for j in idx], kinds,
+        unsigned, [] if distinct is None else [distinct[s]],
+        [] if distinct is None else [None], s * n_local))
 
 
 def _in_key_order(keys, keys_unsigned):
@@ -790,10 +1134,10 @@ def _in_key_order(keys, keys_unsigned):
 
 
 def _empty_groups(mesh, key_arrays, value_arrays, agg_kinds):
-    dev = mesh.root
-    keys = [torch.empty(0, dtype=k[0].dtype, device=dev) for k in key_arrays]
+    dev, s = mesh.root, mesh.local[0]
+    keys = [torch.empty(0, dtype=k[s].dtype, device=dev) for k in key_arrays]
     aggs = [torch.empty(0, dtype=torch.float64 if kind != "count"
-                        and value_arrays[j][0].dtype == torch.float64 else torch.int64,
+                        and value_arrays[j][s].dtype == torch.float64 else torch.int64,
                         device=dev) for j, kind in enumerate(agg_kinds)]
     return keys, aggs, torch.empty(0, dtype=torch.bool, device=dev)
 
@@ -803,7 +1147,8 @@ def distributed_grouped_aggregate(mesh: Mesh, mask, key_arrays, value_arrays, ag
     """Filter + GROUP BY + merge over a sharded table (the JAX
     ``distributed_grouped_aggregate``): H1 on each shard, an O(groups)
     gather of the compact partials (``groupby_gather``) and one H1 merge
-    on the merge shard (``_MERGE_KIND``), shared with the mesh GROUP BY.
+    on the merging process (``_MERGE_KIND``), shared with the mesh GROUP
+    BY.
 
     mask: a list of per-shard bool tensors (or None: every row);
     key_arrays / value_arrays: per stream a list of per-shard tensors;
@@ -812,7 +1157,8 @@ def distributed_grouped_aggregate(mesh: Mesh, mask, key_arrays, value_arrays, ag
     unsigned (u64 bits) and zero-extends a narrow one; ``keys_unsigned``
     orders a key as unsigned.
 
-    Returns (group_keys, aggs, valid) on the merge shard: every group,
+    Returns (group_keys, aggs, valid) on this process's ``root`` (on a
+    process mesh the same bits on every process): every group,
     in ascending key order (that of JAX's ``masked_grouped_aggregate``),
     keys in their own dtypes, counts and integer aggregates int64 (sums
     exact mod 2^64), float ones float64, and ``valid`` all true. JAX pads
@@ -838,10 +1184,11 @@ def distributed_count_distinct(mesh: Mesh, mask, key_arrays, values, keys_unsign
     again and counted per key, as the mesh GROUP BY's count_distinct.
     Values compare by their 64 bits (a float64 stream by its own bits).
 
-    Returns (group_keys, distinct counts int64, valid) on the merge
-    shard, every group in ascending key order, ``valid`` all true (JAX
-    pads to P * n_local entries)."""
-    values = [v.view(torch.int64) if v.dtype == torch.float64 else v for v in values]
+    Returns (group_keys, distinct counts int64, valid) as
+    ``distributed_grouped_aggregate``, every group in ascending key
+    order, ``valid`` all true (JAX pads to P * n_local entries)."""
+    values = [v.view(torch.int64) if v is not None and v.dtype == torch.float64 else v
+              for v in values]
     parts = _shard_partials(mesh, mask, key_arrays, [], [], [], [], distinct=values)
     merged = _merge(mesh, parts, [None] * len(key_arrays), [], [], [None], "distinct_gather")
     if merged is None:
@@ -914,80 +1261,94 @@ def distributed_grouped_aggregate_sharded(mesh: Mesh, mask, key_arrays, value_ar
         it = iter(p.aggs)
         return [p.counts if kind == "count" else next(it) for kind in agg_kinds]
 
-    L = max(1, max(p.counts.shape[0] for p in parts))
+    # one length on every shard of every process, as the sort needs
+    L = _process_max(mesh, max(1, max(parts[i].counts.shape[0] for i in mesh.local)))
 
     def pad(t):
         return torch.cat([t, torch.zeros(L - t.shape[0], dtype=t.dtype, device=t.device)])
 
-    invalid, skeys, pkeys = [], [[] for _ in range(nk)], [[] for _ in range(nk)]
-    pstates = [[] for _ in agg_kinds]
-    for p in parts:
-        dev = p.counts.device
-        invalid.append(torch.arange(L, device=dev) >= p.counts.shape[0])
+    invalid = [None] * P
+    skeys, pkeys = [[None] * P for _ in range(nk)], [[None] * P for _ in range(nk)]
+    pstates = [[None] * P for _ in agg_kinds]
+    for i in mesh.local:
+        p = parts[i]
+        invalid[i] = torch.arange(L, device=p.counts.device) >= p.counts.shape[0]
         for c, (k, u) in enumerate(zip(p.keys, keys_unsigned)):
-            kp = pad(k)
-            pkeys[c].append(kp)
-            skeys[c].append(sortable_u64(kp, unsigned=u))
+            pkeys[c][i] = pad(k)
+            skeys[c][i] = sortable_u64(pkeys[c][i], unsigned=u)
         for c, st in enumerate(states(p)):
-            pstates[c].append(pad(st))
-    del parts
-    bounds = [(0, 1)] + [_sortkey_bounds(k[0].dtype, u) for k, u in zip(key_arrays,
-                                                                         keys_unsigned)]
+            pstates[c][i] = pad(st)
+    del parts, p
+    bounds = [(0, 1)] + [_sortkey_bounds(k[mesh.local[0]].dtype, u)
+                         for k, u in zip(key_arrays, keys_unsigned)]
     (inv_s, *_), pay = distributed_sort(mesh, [invalid, *skeys], [*pkeys, *pstates],
                                         key_bounds=bounds)
     del invalid, skeys, pkeys, pstates
     keys_s, states_s = pay[:nk], pay[nk:]
 
     # 3. each shard's run combined again, its groups in key order
-    out_keys, out_aggs, valid, edges = [], [], [], []
-    for s in range(P):
+    out_keys, out_aggs, valid, edges = [None] * P, [None] * P, [None] * P, [None] * P
+    for s in mesh.local:
         res = hash_groupby([k[s] for k in keys_s], L, ~inv_s[s], [a[s] for a in states_s],
                            state_kinds, state_uns)
         occ = torch.nonzero(res.counts > 0).flatten()
         order = occ[torch.argsort(res.first_index[occ])]
         at = res.first_index[order]
-        out_keys.append([k[s][at] for k in keys_s])
-        out_aggs.append([a[order] for a in res.aggregates])
-        mng = order.shape[0]
-        valid.append(torch.ones(mng, dtype=torch.bool, device=order.device))
-        edges.append(mng)
+        out_keys[s] = [k[s][at] for k in keys_s]
+        out_aggs[s] = [a[order] for a in res.aggregates]
+        edges[s] = order.shape[0]
+        valid[s] = torch.ones(edges[s], dtype=torch.bool, device=order.device)
         del res, occ, order, at
+
+    def result():
+        return ([_local_map(mesh, lambda s, c=c: out_keys[s][c]) for c in range(nk)],
+                [_local_map(mesh, lambda s, c=c: out_aggs[s][c]) for c in range(len(agg_kinds))],
+                valid)
+
     if P == 1:
-        return ([[k[c] for k in out_keys] for c in range(nk)],
-                [[a[c] for a in out_aggs] for c in range(len(agg_kinds))], valid)
+        return result()
 
     # 4. the boundary patch over the 2P edge entries
     def edge_pair(t, mng):
         return t[[0, max(mng - 1, 0)]] if mng else torch.zeros(2, dtype=t.dtype,
                                                                device=t.device)
 
-    dev0 = mesh.root
-    contrib = _xch_all_gather(mesh, [torch.tensor([m > 0, m >= 2], device=d)
-                                     for m, d in zip(edges, mesh.devices)], "boundary_gather")
-    bkeys = [_xch_all_gather(mesh, [edge_pair(k[c], m) for k, m in zip(out_keys, edges)],
-                             "boundary_gather") for c in range(nk)]
-    baggs = [_xch_all_gather(mesh, [edge_pair(a[c], m) for a, m in zip(out_aggs, edges)],
-                             "boundary_gather") for c in range(len(agg_kinds))]
-    match = contrib[None, :] & contrib[:, None]
-    for bk in bkeys:
-        match = match & (bk[:, None] == bk[None, :])
-    bshard = torch.arange(2 * P, device=dev0) // 2
-    cnt = match.sum(1)
-    owner = torch.where(match, bshard[None, :], -1).amax(1)
-    spans = cnt > 1
-    is_owner = spans & (owner == bshard)
-    drop = spans & (owner != bshard)
-    totals = [_masked_reduce(ba, match, kind, u)
-              for ba, kind, u in zip(baggs, state_kinds, state_uns)]
-    patch = torch.stack([is_owner.to(torch.int64), drop.to(torch.int64)]
-                        + [t.view(torch.int64) if t.dtype == torch.float64 else t
-                           for t in totals])
-    for s, (dev, mng) in enumerate(zip(mesh.devices, edges)):
+    contrib, *edge_cols = _xch_gather(
+        mesh, [_local_map(mesh, lambda s: torch.tensor([edges[s] > 0, edges[s] >= 2],
+                                                       device=mesh.devices[s]))]
+        + [_local_map(mesh, lambda s, c=c: edge_pair(out_keys[s][c], edges[s]))
+           for c in range(nk)]
+        + [_local_map(mesh, lambda s, c=c: edge_pair(out_aggs[s][c], edges[s]))
+           for c in range(len(agg_kinds))], "boundary_gather")
+    patch, nb = None, 0
+    if mesh.merges:
+        bkeys, baggs = edge_cols[:nk], edge_cols[nk:]
+        match = contrib[None, :] & contrib[:, None]
+        for bk in bkeys:
+            match = match & (bk[:, None] == bk[None, :])
+        bshard = torch.arange(2 * P, device=mesh.root) // 2
+        cnt = match.sum(1)
+        owner = torch.where(match, bshard[None, :], -1).amax(1)
+        spans = cnt > 1
+        is_owner = spans & (owner == bshard)
+        drop = spans & (owner != bshard)
+        totals = [_masked_reduce(ba, match, kind, u)
+                  for ba, kind, u in zip(baggs, state_kinds, state_uns)]
+        patch = torch.stack([is_owner.to(torch.int64), drop.to(torch.int64)]
+                            + [t.view(torch.int64) if t.dtype == torch.float64 else t
+                               for t in totals])
+        # each shard with a group but shard 0 is sent its two columns
+        has = [m > 0 for m in edges] if mesh.group is None else contrib[0::2].tolist()
+        nb = _nbytes(patch[:, :2]) * sum(1 for s in range(1, P) if has[s])
+    if mesh.group is None:
+        _record(mesh, "boundary_patch", nb)
+    else:
+        (patch,) = _replicate(mesh, [patch], "boundary_patch", nb)
+    for s in mesh.local:
+        mng = edges[s]
         if mng == 0:
             continue
-        rows = patch[:, 2 * s:2 * s + 2]
-        _record(mesh, "boundary_patch", _nbytes(rows) if s else 0)
-        rows = rows.to(dev, non_blocking=True)
+        rows = patch[:, 2 * s:2 * s + 2].to(mesh.devices[s], non_blocking=True)
         for e, pos in enumerate([0, mng - 1] if mng >= 2 else [0]):
             own, gone = rows[0, e:e + 1] != 0, rows[1, e:e + 1] != 0
             for c, a in enumerate(out_aggs[s]):
@@ -995,5 +1356,4 @@ def distributed_grouped_aggregate_sharded(mesh: Mesh, mask, key_arrays, value_ar
                 t = t.view(torch.float64) if a.dtype == torch.float64 else t
                 a[pos:pos + 1] = torch.where(own, t, a[pos:pos + 1])
             valid[s][pos:pos + 1] &= ~gone
-    return ([[k[c] for k in out_keys] for c in range(nk)],
-            [[a[c] for a in out_aggs] for c in range(len(agg_kinds))], valid)
+    return result()

@@ -39,6 +39,9 @@ class MeshTableProvider(RelationTableProvider):
 
                 n_shards = torch.cuda.device_count() if device == "cuda" else 1
             mesh = make_mesh(n_shards, device)
+        if mesh.group is not None:
+            raise ValueError("MeshTableProvider: the SQL mesh routes run on a single-controller"
+                             " mesh (make_mesh), not on a process mesh")
         self.mesh = mesh
         self.n_shards = mesh.size
         self._shard_cache: Dict[Tuple, Tuple] = {}

@@ -434,19 +434,21 @@ def _mesh_tables(n):
     cols, dictionary = chip_smoke.make_table(n, seed=42)
     dims = chip_smoke.make_dims(seed=43)
     full = chip_smoke.add_dims(chip_smoke.provider_of(cols, dictionary, n), dims)
+    small, small_qs = chip_smoke.small_order_table(seed=47)
+    full.add_table("o", small)
     return full, dict(full=full, gqs=chip_smoke.queries(cols, dictionary),
                       hqs=chip_smoke.general_queries(cols, dictionary, n),
                       oqs=chip_smoke.order_queries(cols, dictionary, n),
-                      jqs=chip_smoke.join_queries(cols, dims, n))
+                      jqs=chip_smoke.join_queries(cols, dims, n),
+                      mesh_oqs=chip_smoke.mesh_order_queries(cols, dictionary) + small_qs)
 
 
 def test_mesh_routes_on_the_card_equal_the_cpu_mesh(cuda_device, monkeypatch):
     """chip_smoke.py phase 6's queries at 2^20 rows over 4 shards on the
     card and over 4 shards on the CPU (the plain versions): the same rows,
     equal to numpy; every mesh route ran, the card's through the kernels
-    alone; the full scan ORDER BY raises on both."""
+    alone, a full scan ORDER BY through the sort phase 6 names for it."""
     import chip_smoke
-    from eventql_tpu_torch.core.errors import RuntimeError_
     from eventql_tpu_torch.exec import mesh_exec
     from eventql_tpu_torch.exec.runtime import Runtime
     from eventql_tpu_torch.kernels import hash_groupby
@@ -456,7 +458,7 @@ def test_mesh_routes_on_the_card_equal_the_cpu_mesh(cuda_device, monkeypatch):
     meshes = {}
     for device in ("cuda", "cpu"):
         p = MeshTableProvider(n_shards=4, device=device)
-        for name in ("t", "d1", "d2"):
+        for name in ("t", "d1", "d2", "o"):
             p.add_table(name, full.get_table_data(name))
         meshes[device] = p
     rt = Runtime(device=None)
@@ -472,16 +474,13 @@ def test_mesh_routes_on_the_card_equal_the_cpu_mesh(cuda_device, monkeypatch):
         rows = {}
         for device, p in meshes.items():
             counters = chip_smoke._mesh_counters()
-            if route is None:
-                with pytest.raises(RuntimeError_, match="not ported.*mesh ORDER BY"):
-                    chip_smoke.run_query(rt, p, sql)
-                continue
             rows[device] = chip_smoke.run_query(rt, p, sql).rows
             delta = [b - a for a, b in zip(counters, chip_smoke._mesh_counters())]
-            assert delta == [int(route == r) for r in range(3)], (name, device)
-        if route is not None:
-            assert rows["cuda"] == rows["cpu"], name
-            assert ok(rows["cuda"]), name
+            # routes 0-2 GROUP BY, JOIN, top-k; 3 the sample sort, 4 the compare-split
+            want = [int(route == r) for r in range(3)] + [int(route >= 3), int(route == 3)]
+            assert delta == want, (name, device)
+        assert rows["cuda"] == rows["cpu"], name
+        assert ok(rows["cuda"]), name
     after = chip_smoke.launch_counts()
     for kernel in ("groupby_agg", "groupby_multi_agg", "dim_join_gid", "probe_join_gid",
                    "hash_groupby"):
@@ -520,3 +519,40 @@ def test_distributed_functions_on_the_card(cuda_device):
             torch.from_numpy(d["d2_keys"].view(np.int64)).to(dev),
             torch.from_numpy(d["d2_flag"]).to(dev), chip_smoke.MJ_BUCKETS)
         assert [t.tolist() for t in got] == want_multi, device
+
+
+def _process_mesh_equals_the_cpu_mesh(out_dir, backend):
+    """tests/test_torch_multihost.py's cases over two processes on CUDA
+    shards (4 each): every output shard by shard, on both processes, and
+    every exchange op's bytes, summed over the processes, equal the single
+    controller's on 8 CPU shards, and numpy."""
+    import test_torch_multihost as tm
+    from eventql_tpu_torch.parallel import distributed
+
+    ranks = tm.spawn_workers(out_dir, device="cuda", backend=backend)
+    single = tm.run_cases(distributed.make_mesh(tm.P, "cpu"), tm.CASES)
+    for case in tm.CASES:
+        sharded, rep, tally = tm.assemble(ranks, case)
+        s_sharded, s_rep, s_tally = single[case]
+        for name, parts in s_sharded.items():
+            for i in range(tm.P):
+                assert np.array_equal(sharded[name][i], parts[i]), (case, name, i)
+        for name, want in s_rep.items():
+            for r in rep:
+                assert np.array_equal(r[name], want), (case, name)
+        got = {op: b for op, b in tally["bytes"].items() if op not in tm.PROCESS_OPS}
+        assert got == s_tally["bytes"], case
+        tm.check_numpy(case, sharded, rep[0])
+
+
+def test_process_mesh_on_the_card_equals_the_cpu_mesh(cuda_device, tmp_path):
+    """Both processes on this card, exchanging through gloo (NCCL refuses
+    two ranks on one card)."""
+    _process_mesh_equals_the_cpu_mesh(str(tmp_path), "gloo")
+
+
+def test_process_mesh_over_nccl_equals_the_cpu_mesh(cuda_device, tmp_path):
+    """One process a card, exchanging through NCCL (needs two cards)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("NCCL needs a card for each of the two processes")
+    _process_mesh_equals_the_cpu_mesh(str(tmp_path), "nccl")

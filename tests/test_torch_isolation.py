@@ -7,6 +7,7 @@ has jax loaded by tests/conftest.py) and statically over the sources.
 
 import os
 import re
+import socket
 import subprocess
 import sys
 
@@ -142,6 +143,16 @@ gk, (mx,), valid = distributed.distributed_grouped_aggregate_sharded(
     mesh, ms, [gs], [vs], ["max"])
 assert sum((t[m].tolist() for t, m in zip(mx, valid)), []) == [
     int(v[(v < 800) & (k % 3 == g)].max()) for g in range(3)]
+# the process mesh's module: its entry points on a one-process group
+from eventql_tpu_torch.parallel import multihost
+multihost.init_multihost(f"127.0.0.1:{multihost_port}", 1, 0, backend="gloo", timeout_s=60)
+gm = multihost.global_mesh(4, "cpu")
+assert (gm.size, gm.local, gm.world) == (4, [0, 1, 2, 3], 1)
+gs, gv = multihost.make_global_table(gm, [k % 3, v])
+gk, (sm,), _valid = distributed.distributed_grouped_aggregate(gm, None, [gs], [gv], ["sum"])
+assert multihost.fetch_replicated(sm).tolist() == [int(v[k % 3 == g].sum()) for g in range(3)]
+assert multihost.fetch_sharded(gm, gv).tolist() == v.astype(np.int64).tolist()
+torch.distributed.destroy_process_group()
 try:
     distributed.make_mesh(2, "cuda")
 except RuntimeError_ as e:
@@ -193,12 +204,20 @@ print("ISOLATED-OK")
 """
 
 
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
 def test_port_runs_without_jax_and_refuses_a_missing_gpu():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     env["CUDA_VISIBLE_DEVICES"] = ""
     out = subprocess.run(
-        [sys.executable, "-c", _PROGRAM],
+        [sys.executable, "-c", f"multihost_port = {_free_port()}\n" + _PROGRAM],
         cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
     )
     assert out.returncode == 0, out.stdout + out.stderr
