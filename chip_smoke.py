@@ -76,14 +76,38 @@ Phases (any mismatch or exception ends the run with a non-zero code):
      held against its plain version; times (host clock between barriers,
      median of 3) beside phase 6's, bytes across processes and host
      staging time. A worker that fails or outlives its timeout is killed
-     and the script fails.
+     and the script fails;
+  8. storage: phase 4's table plus an ``id`` UINT64 primary key, written
+     through the LSM table service (db/lsm.py) as STORAGE_COMMITS commits
+     of cstable v0.2 segments with its two dimension tables, read back by a
+     new service on the same directory (a restart), then: the streaming
+     cursor (rows equal to execute and numpy, one segment alive at a time),
+     phase 4's GROUP BY, general GROUP BY, ORDER BY [LIMIT] and JOIN + GROUP
+     BY queries under Runtime(device="cuda") equal to numpy (tolerance 0),
+     every route counter rising once a run, each path's launch counts set
+     to 0 just before it and read just after (each kernel's first call on
+     the path held against its plain version); compact(), after which the
+     headline GROUP BY gives the same rows and uploads its columns once; a
+     QueryCache over a CSTableScanProvider on a segment: the second GROUP
+     BY a hit that launches nothing; times of the writes, the reopen, each
+     query's first run (its upload) and warm runs (CUDA events, median of
+     STORAGE_WARM);
+  9. fuzz corpora: the seeds of the port's CPU fuzz tests (GROUP BY 60 +
+     50, ORDER BY 30 + 25, JOIN 20 + 20; tables of 0-20 000 rows with NULL
+     masks, u64 values of 2^63 and more, 1-4099 keys) under
+     Runtime(device="cuda"), Runtime(device="cpu") and the host engine,
+     the group-by and order seeds also over MeshTableProvider(n_shards=4,
+     device="cuda"): every ResultList equal (tolerance 0), the CPU tests'
+     floors on the route counters met; integer modulo by zero raises on
+     each.
 
 With EVQL_PARENT_JOIN_CU naming an earlier join.cu whose
 evql_dim_join_gid has this one's C interface (the argument types
 kernels/join.py gives it), phase 2 builds it too and phase 5 holds its
 small-table probe against this one and times it on the same inputs.
 
-Prints a JSON line {"mesh": ...}, one {"multihost": ...}, one {"kernels": [...]} and, as the last line,
+Prints a JSON line {"mesh": ...}, one {"multihost": ...}, one {"storage": ...}, one
+{"fuzz": ...}, one {"kernels": [...]} and, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -91,6 +115,7 @@ import ctypes
 import inspect
 import json
 import os
+import random
 import re
 import socket
 import statistics
@@ -98,13 +123,18 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 import numpy as np
 import torch
 
+from eventql_tpu_torch.columnar import native
+from eventql_tpu_torch.columnar.providers import CSTableScanProvider
 from eventql_tpu_torch.core.types import SType
+from eventql_tpu_torch.db.lsm import DurableTableService
 from eventql_tpu_torch.exec import device_exec, mesh_exec
-from eventql_tpu_torch.exec.relation import relation_from_numpy
+from eventql_tpu_torch.exec.query_cache import QueryCache
+from eventql_tpu_torch.exec.relation import Column, Relation, dtype_for, relation_from_numpy
 from eventql_tpu_torch.exec.runtime import (
     PlanCache,
     RelationTableProvider,
@@ -910,11 +940,13 @@ def _bincounts(key, K, keep, *weights):
     return occ, counts[occ], [s[occ] for s in sums]
 
 
-def queries(c, dictionary):
-    """(name, sql, kernel it must launch, fused?, expected rows)."""
+def queries(c, dictionary, cat_lo=CAT_LO):
+    """(name, sql, kernel it must launch, fused?, expected rows).
+    ``cat_lo`` is the least value ``cat`` may hold (phase 8 stores it
+    shifted to start at 0)."""
     names = [d.decode() for d in dictionary]
     k, v, w = c["k"], c["v"], c["w"]
-    cat = (c["cat"] - CAT_LO).astype(np.int64)
+    cat = (c["cat"] - cat_lo).astype(np.int64)
     big = (c["big"] - BIG_BASE).astype(np.int64)
     everything = np.ones(len(k), bool)
 
@@ -941,7 +973,7 @@ def queries(c, dictionary):
     out.append(("numeric_key_base",
                 "select cat, count(1), sum(v) from t where v < 800 group by cat;",
                 "groupby_agg", True,
-                rows(occ, lambda o: str(o + CAT_LO), cnt, sv)))
+                rows(occ, lambda o: str(o + cat_lo), cnt, sv)))
     occ, cnt, (sw,) = _bincounts(big, BIG_SPAN, v < 800, w)
     out.append(("k_100000",
                 "select big, count(1), sum(w) from t where v < 800 group by big;",
@@ -1098,13 +1130,14 @@ def _first_rows_of(group, G):
     return first
 
 
-def general_queries(c, dictionary, n):
+def general_queries(c, dictionary, n, cat_lo=CAT_LO):
     """(name, sql, expected rows in order): independent numpy answers,
     groups in the order of their first rows, floats as the port prints
-    them ("%f"; every sum here is exact in float64)."""
+    them ("%f"; every sum here is exact in float64). ``cat_lo`` as in
+    ``queries``."""
     names = np.array([d.decode() for d in dictionary], dtype=object)
     k, v, w, ts = c["k"][:n], c["v"][:n], c["w"][:n], c["ts"][:n]
-    cat = (c["cat"][:n] - CAT_LO).astype(np.int64)
+    cat = (c["cat"][:n] - cat_lo).astype(np.int64)
 
     def ordered(first, *cols):
         occ = np.nonzero(first < n)[0]
@@ -1144,7 +1177,7 @@ def general_queries(c, dictionary, n):
     np.maximum.at(tmax, pair, ts)
     out.append(("G3_two_keys", ordered(
         _first_rows_of(pair, P), lambda o: names[o // (CAT_HI - CAT_LO)].tolist(),
-        lambda o: (o % (CAT_HI - CAT_LO) + CAT_LO).astype(str).tolist(),
+        lambda o: (o % (CAT_HI - CAT_LO) + cat_lo).astype(str).tolist(),
         num(np.bincount(pair, minlength=P)), num(tmax))))
     seen = np.zeros((N_KEYS, 1000), bool)
     seen[k, v] = True
@@ -1156,7 +1189,7 @@ def general_queries(c, dictionary, n):
     sw = np.bincount(cat, weights=w.astype(np.float64), minlength=C)
     with np.errstate(invalid="ignore", divide="ignore"):
         out.append(("G5_float_sums", ordered(
-            _first_rows_of(cat, C), lambda o: (o + CAT_LO).astype(str).tolist(),
+            _first_rows_of(cat, C), lambda o: (o + cat_lo).astype(str).tolist(),
             flt(sv / 64), flt(sw / ccount))))
     return [(name, GENERAL_SQL[name], rows) for name, rows in out]
 
@@ -2829,6 +2862,707 @@ def phase_multihost(tier6):
     return out
 
 
+# -- phase 8: storage -------------------------------------------------------------
+#
+# Phase 4's table (plus an ``id`` UINT64 primary key) written through the
+# LSM table service (db/lsm.py) as cstable v0.2 segments, read back by a new
+# service on the same directory as after a restart, and queried on the card
+# through the same routes. The rows are cut below phase 4's 2^26 (see
+# STORAGE_ROWS); the answers are phase 4's numpy answers at this size.
+
+STORAGE_ROWS = 1 << 22  # two commits of 2^21: the host-side read of a
+# primary-keyed table costs about 6 us a row (PERF.md, phase 8)
+STORAGE_COMMITS = 2
+STORAGE_WARM = 3  # CUDA-event timed runs of each query after its first
+STORAGE_COLUMNS = [("id", SType.UINT64)] + COLUMNS
+
+
+def _create_sql(name, columns, pk=None):
+    types = {SType.STRING: "STRING", SType.UINT64: "UINT64", SType.INT64: "UINT64"}
+    cols = ", ".join(f"{c} {types[st]}" for c, st in columns)
+    return f"CREATE TABLE {name} ({cols}{f', PRIMARY KEY ({pk})' if pk else ''});"
+
+
+def stored_columns(cols):
+    """Phase 4's columns as the table service stores them: its schema has
+    no signed integer type, so ``cat`` is kept as ``cat - CAT_LO``
+    (0..99, UINT64); the expected answers are made with ``cat_lo=0``."""
+    out = dict(cols)
+    out["cat"] = (cols["cat"] - CAT_LO).astype(np.uint64)
+    return out
+
+
+def _batch(columns, arrays, lo, hi, dictionaries):
+    n = hi - lo
+    ones = np.ones(n, bool)
+    return Relation(
+        [c for c, _st in columns],
+        [Column(st, arrays[c][lo:hi], ones, dictionaries.get(c)) for c, st in columns], n)
+
+
+def write_storage(datadir, cols, dictionary, dims, n, commits):
+    """Create the fact table and the two dimension tables in a
+    DurableTableService at ``datadir`` and write them: the fact table as
+    ``commits`` commits (one segment each). Returns the seconds of each
+    fact commit (its batch insert included)."""
+    svc = DurableTableService(datadir, arena_flush_rows=n + 1)  # commits by hand
+    host = Runtime(device=None)
+    txn = host.new_transaction(svc)
+    for sql in (_create_sql("t", STORAGE_COLUMNS, pk="id"),
+                _create_sql("d1", [("k", SType.UINT64), ("region", SType.STRING)]),
+                _create_sql("d2", [("k", SType.UINT64), ("region", SType.STRING)])):
+        host.build_query_plan(txn, sql).execute(0)
+    arrays = dict(cols, id=np.arange(n, dtype=np.uint64))
+    secs = []
+    for c in range(commits):
+        lo, hi = c * n // commits, (c + 1) * n // commits
+        t0 = time.perf_counter()
+        svc.tables["t"].insert_batch(_batch(STORAGE_COLUMNS, arrays, lo, hi, {"k": dictionary}))
+        svc.tables["t"].commit()
+        secs.append(time.perf_counter() - t0)
+    regions = np.array([b"r%04d" % i for i in range(N_REGIONS)], dtype=object)
+    for (name, (ordinal, region)), mult in zip(dims.items(), (DIM_MULT, BIG_DIM_MULT)):
+        d = {"k": ordinal.astype(np.uint64) * mult + 3, "region": region.astype(np.int32)}
+        svc.tables[name].insert_batch(_batch(
+            [("k", SType.UINT64), ("region", SType.STRING)], d, 0, len(ordinal),
+            {"region": regions}))
+        svc.tables[name].commit()
+    check([len(svc.tables[x]._segments) for x in ("t", "d1", "d2")] == [commits, 1, 1],
+          "phase 8: one segment a commit")
+    return secs
+
+
+def check_stored_relation(rel, n):
+    """What the routes are handed after the merge of the segments: every
+    column C-contiguous in its SType's dtype, ``k`` int32 ids over one
+    dictionary of N_KEYS strings."""
+    check(rel.num_rows == n, f"phase 8: {rel.num_rows} rows read, {n} written")
+    for name, c in zip(rel.names, rel.columns):
+        check(c.data.dtype == dtype_for(c.stype) and c.data.flags.c_contiguous
+              and c.valid.flags.c_contiguous, f"phase 8: column {name}: {c.data.dtype}")
+    k = rel.columns[rel.names.index("k")]
+    check(k.stype == SType.STRING and k.data.dtype == np.int32
+          and len(k.dictionary) == N_KEYS, "phase 8: the string key after the merge")
+
+
+def storage_stream(svc, rt, n, cols):
+    """The streaming cursor over the reopened table, before anything built
+    its merged view: SELECT id, v WHERE cat < 0 yields the rows of
+    ``execute`` (and of numpy), each segment read once, and no more than
+    one segment's relation alive while rows are pulled."""
+    table = svc.tables["t"]
+    check(table._relation_cache is None, "phase 8: merged view built before the stream")
+    sql = f"select id, v from t where cat < {-CAT_LO};"  # cat < 0 before the shift
+    reads, alive_max = [], 0
+    read = table._read_segment
+
+    def counted(seg, fd=None):
+        rel = read(seg, fd=fd)
+        reads.append(weakref.ref(rel))
+        return rel
+
+    table._read_segment = counted
+    t0 = time.perf_counter()
+    try:
+        res = rt.build_query_plan(rt.new_transaction(svc), sql).execute_stream(0)
+        check(type(res).__name__ == "StreamingResultList", "phase 8: no streaming cursor")
+        streamed = []
+        for i, row in enumerate(res.rows):
+            streamed.append(row)
+            if i % 4096 == 0:
+                alive_max = max(alive_max, sum(r() is not None for r in reads))
+    finally:
+        del table._read_segment
+    stream_s = time.perf_counter() - t0
+    check(len(reads) == len(table._segments) and alive_max <= 1,
+          f"phase 8: {len(reads)} segment reads, {alive_max} segments alive at once")
+    check(table._relation_cache is None, "phase 8: the stream built the merged view")
+    keep = cols["cat"][:n] < 0
+    want = [[str(i), str(v)] for i, v in zip(np.nonzero(keep)[0], cols["v"][:n][keep])]
+    check(streamed == want, "phase 8: streamed rows differ from the numpy answer")
+    t0 = time.perf_counter()
+    got = rt.build_query_plan(rt.new_transaction(svc), sql).execute(0).rows
+    read_s = time.perf_counter() - t0
+    check(got == streamed, "phase 8: execute and execute_stream differ")
+    log(f"phase 8: stream of {len(streamed)} rows in {stream_s:.1f} s, {len(reads)} segment"
+        f" reads, at most {alive_max} alive; execute (the merged view) {read_s:.1f} s")
+    return dict(rows=len(streamed), stream_s=stream_s, execute_s=read_s,
+                segments_alive_max=alive_max)
+
+
+def _warm_event_ms(rt, provider, sql, expected_rows, counter):
+    """STORAGE_WARM runs between CUDA events, each equal to the first
+    run's rows and raising the route counter ``counter`` once."""
+    before = getattr(device_exec, counter)
+    ms = []
+    for _ in range(STORAGE_WARM):
+        res, t = event_ms(lambda: run_query(rt, provider, sql))
+        check(res.rows == expected_rows, f"phase 8: {sql}: rows differ on a warm run")
+        ms.append(t)
+    rose = getattr(device_exec, counter) - before
+    check(rose == STORAGE_WARM, f"phase 8: {sql}: {counter} rose {rose}")
+    return statistics.median(ms)
+
+
+def _route_counter(path, q):
+    """The route counter a query of phase 4's lists must raise."""
+    if path == "group_by":
+        return "FUSED_GROUPBY_COUNT" if q[3] else "MULTI_SUM_GROUPBY_COUNT"
+    if path == "order_by":
+        return "SCAN_TOPK_COUNT" if q[2] == "topk" else "SCAN_ORDER_COUNT"
+    return {"general_group_by": "GENERAL_GROUPBY_COUNT", "join": "JOIN_GROUPBY_COUNT"}[path]
+
+
+def storage_queries(rt, svc, cols, dictionary, dims, n):
+    """Phase 4's four paths over the stored table, each with the launch
+    counts set to 0 just before it and read just after; every query's
+    first run (which uploads its columns) checked by the path's own
+    function, then STORAGE_WARM runs timed by CUDA events."""
+    c = dict(cols, cat=cols["cat"] - CAT_LO)
+    gqs = queries(c, dictionary, cat_lo=0)
+    hqs = general_queries(c, dictionary, n, cat_lo=0)
+    oqs = order_queries(cols, dictionary, n)
+    jqs = join_queries(cols, dims, n)
+    per_query, launches, first = {}, {}, {}
+    paths = (("group_by", groupby_path, gqs), ("general_group_by", general_path, hqs),
+             ("order_by", order_path, oqs), ("join", join_path, jqs))
+    for path, fn, qs in paths:
+        zero_launch_counts()
+        e2e, _per, calls = fn(rt, svc, qs, 2)  # the first run uploads; one warm run
+        launches[path] = launch_counts()
+        for q in qs:
+            name, sql = q[0], q[1]
+            recorded = calls[name] if isinstance(calls[name], list) else [calls[name]]
+            for kernel, kw in recorded:
+                first.setdefault(kernel, (name, kw))
+            rows = run_query(rt, svc, sql).rows
+            warm = _warm_event_ms(rt, svc, sql, rows, _route_counter(path, q))
+            per_query[name] = dict(first_ms=e2e[name]["first_ms"], warm_ms=warm)
+    for path, kernels in (("group_by", ("groupby_agg", "groupby_multi_agg")),
+                          ("general_group_by", ("hash_groupby",)),
+                          ("order_by", ("groupby_agg", "extract_ge")),
+                          ("join", ("dim_join_gid", "probe_join_gid", "groupby_agg",
+                                    "groupby_multi_agg", "hash_groupby"))):
+        for k in kernels:
+            check(launches[path][k] > 0, f"phase 8: {k} not launched on the {path} path")
+    return per_query, launches, first, gqs
+
+
+def storage_compaction(rt, svc, gq):
+    """compact() folds the segments into one; the headline GROUP BY then
+    gives the same rows, and its first run uploads the new relation's
+    columns once (a second run reuses the same tensors)."""
+    name, sql, _kernel, _fused, expected = gq
+    table = svc.tables["t"]
+    old = svc.get_table_data("t")
+    t0 = time.perf_counter()
+    table.compact()
+    compact_s = time.perf_counter() - t0
+    check(len(table._segments) == 1, "phase 8: compaction left several segments")
+    t0 = time.perf_counter()
+    rel = svc.get_table_data("t")
+    read_s = time.perf_counter() - t0
+    check(rel is not old, "phase 8: the merged view survived the compaction")
+    del old
+    used = [rel.columns[rel.names.index(x)] for x in ("k", "v")]
+    check(all(getattr(c, "_device_cache", None) is None for c in used),
+          "phase 8: columns on the card before the first query")
+    res, first_ms = event_ms(lambda: run_query(rt, svc, sql))
+    check(sorted(res.rows) == expected, f"phase 8: {name} after compaction differs")
+    cached = [c._device_cache[str(rt.device)] for c in used]
+    warm = _warm_event_ms(rt, svc, sql, res.rows, "FUSED_GROUPBY_COUNT")
+    check(all(c._device_cache[str(rt.device)] is d for c, d in zip(used, cached)),
+          "phase 8: a warm run uploaded the columns again")
+    log(f"phase 8: compaction {compact_s:.1f} s, read {read_s:.1f} s; {name} after it:"
+        f" first {first_ms:.3f} ms (uploads), warm {warm:.3f} ms, same rows")
+    return dict(compact_s=compact_s, read_s=read_s, first_ms=first_ms, warm_ms=warm)
+
+
+def storage_query_cache(rt, datadir, dims):
+    """QueryCache over a CSTableScanProvider on the big dimension table's
+    segment: the second identical GROUP BY is a hit, launches no kernel,
+    takes no route and gives the same rows (equal to numpy)."""
+    seg_dir = os.path.join(datadir, "d2")
+    (seg,) = [f for f in os.listdir(seg_dir) if f.endswith(".cst")]
+    provider = CSTableScanProvider("d2", os.path.join(seg_dir, seg))
+    cache = QueryCache(os.path.join(datadir, "qcache"))
+    sql = "select region, count(1) from d2 group by region;"
+    _ordinal, region = dims["d2"]
+    occ, cnt, _ = _bincounts(region, N_REGIONS, np.ones(len(region), bool))
+    expected = sorted(["r%04d" % o, str(int(a))] for o, a in zip(occ, cnt))
+    out = {}
+    for run in ("miss", "hit"):
+        before, route = launch_counts(), device_exec.FUSED_GROUPBY_COUNT
+        txn = rt.new_transaction(provider, query_cache=cache)
+        res, out[f"{run}_ms"] = event_ms(
+            lambda: rt.build_query_plan(txn, sql).execute(0))
+        check(sorted(res.rows) == expected, f"phase 8: query cache {run}: rows")
+        launched = sum(launch_counts().values()) - sum(before.values())
+        took = device_exec.FUSED_GROUPBY_COUNT - route
+        check((launched, took) == ((1, 1) if run == "miss" else (0, 0)),
+              f"phase 8: query cache {run}: {launched} launches, route taken {took}")
+        check(len(os.listdir(cache.cache_dir)) == 1, f"phase 8: query cache {run}: entries")
+    log(f"phase 8: query cache: miss {out['miss_ms']:.3f} ms (one launch), hit"
+        f" {out['hit_ms']:.3f} ms (none), same rows")
+    return out
+
+
+def phase_storage(device):
+    """Phase 8. Returns the numbers of the {"storage": ...} line, the
+    launches of each path and the first call of each kernel on them."""
+    t0 = time.perf_counter()
+    n = STORAGE_ROWS
+    cols, dictionary = make_table(n, seed=44)
+    dims = make_dims(seed=43)
+    stored = stored_columns(cols)
+    with tempfile.TemporaryDirectory() as datadir:
+        write_s = write_storage(datadir, stored, dictionary, dims, n, STORAGE_COMMITS)
+        seg_bytes = sum(os.path.getsize(os.path.join(datadir, "t", f))
+                        for f in os.listdir(os.path.join(datadir, "t")) if f.endswith(".cst"))
+        log(f"phase 8: {n} rows written as {STORAGE_COMMITS} commits"
+            f" ({[f'{s:.1f}' for s in write_s]} s), segments {seg_bytes} bytes")
+        t1 = time.perf_counter()
+        svc = DurableTableService(datadir)  # a restart: a new service on the directory
+        reopen_s = time.perf_counter() - t1
+        rt = Runtime(plan_cache=PlanCache(), device=device)
+        stream = storage_stream(svc, rt, n, cols)
+        check_stored_relation(svc.get_table_data("t"), n)
+        per_query, launches, first, gqs = storage_queries(rt, svc, cols, dictionary, dims, n)
+        compaction = storage_compaction(rt, svc, gqs[0])
+        qcache = storage_query_cache(rt, datadir, dims)
+        svc.tables["t"]._relation_cache = None
+        del svc
+    out = dict(rows=n, commits=STORAGE_COMMITS, segment_bytes=seg_bytes,
+               write_s_per_commit=write_s, reopen_s=reopen_s, stream=stream,
+               queries=per_query, compaction=compaction, query_cache=qcache,
+               native_codec_loaded=native._try_load() is not None,
+               phase_s=time.perf_counter() - t0)
+    log(f"phase 8: {len(per_query)} queries over the stored table equal to numpy at {n}"
+        f" rows in {out['phase_s']:.1f} s")
+    return out, launches, first
+
+
+# -- phase 9: the device fuzz corpora ----------------------------------------------
+#
+# The seeds of the port's CPU fuzz tests (tests/test_torch_fuzz_groupby.py,
+# test_torch_order_routes.py, test_torch_join_routes.py,
+# test_torch_mesh_sql.py), their tables and queries made by copies of the
+# tests' generators (this script imports nothing of the tests; a CPU test
+# holds the copies to the originals): every query under Runtime(device=
+# "cuda"), Runtime(device="cpu") (the plain versions) and the host engine
+# (device=None), the ResultLists equal at tolerance 0 (the floats are
+# multiples of 1/64), with the CPU tests' floors on the route counters.
+
+FUZZ_SIZES = [0, 1, 7, 100, 3000, 20000]
+FUZZ_CARDS = [1, 2, 17, 257, 4099]
+
+
+def _provider_of(tables):
+    p = RelationTableProvider()
+    for name, rel in tables.items():
+        p.add_table(name, rel)
+    return p
+
+
+def fuzz_group_table(rng):
+    """tests/test_fuzz_device_parity.py:_make_table."""
+    n = rng.choice(FUZZ_SIZES)
+    card = rng.choice(FUZZ_CARDS)
+    npr = np.random.default_rng(rng.randrange(1 << 30))
+    k1 = npr.integers(0, card, max(n, 1))[:n].astype(np.uint64)
+    k2 = npr.integers(-20, 20, max(n, 1))[:n].astype(np.int64)
+    v = npr.integers(0, 10_000, max(n, 1))[:n].astype(np.uint64)
+    if n and rng.random() < 0.3:
+        hot = npr.integers(0, n, max(n // 50, 1))
+        v[hot] = np.uint64(1 << 63) + v[hot]
+    v_valid = npr.random(max(n, 1))[:n] < (1.0 if rng.random() < 0.5 else 0.85)
+    f = (npr.integers(-4096, 4096, max(n, 1))[:n] / 64.0).astype(np.float64)
+    f_valid = npr.random(max(n, 1))[:n] < (1.0 if rng.random() < 0.5 else 0.9)
+    return {"t": Relation(
+        ["k1", "k2", "v", "f"],
+        [Column(SType.UINT64, k1, np.ones(n, bool)),
+         Column(SType.INT64, k2, np.ones(n, bool)),
+         Column(SType.UINT64, np.where(v_valid, v, 0).astype(np.uint64), v_valid.copy()),
+         Column(SType.FLOAT64, np.where(f_valid, f, 0.0), f_valid.copy())],
+        n)}
+
+
+FUZZ_GROUP_EXPRS = ["k1", "k2", "k1 % 13", "k1 % 3", "if(k2 > 0, 1, 0)", "k1 + 1"]
+FUZZ_AGG_EXPRS = ["count(1)", "count(v)", "sum(v)", "sum(k2)", "sum(v + 1)", "min(k2)",
+                  "max(k2)", "min(f)", "max(f)", "sum(f)", "mean(f)", "mean(k2)",
+                  "count_distinct(v)", "sum(f * 2.0)", "max(v)"]
+FUZZ_WHERE_TERMS = ["v < 5000", "k1 > 5", "k2 >= 0", "f > 0.0", "v % 7 = 1", "k2 < 10"]
+
+
+def fuzz_group_query(rng):
+    """tests/test_fuzz_device_parity.py:_gen_query."""
+    n_keys = rng.choice([0, 1, 1, 2])
+    keys = rng.sample(FUZZ_GROUP_EXPRS, n_keys)
+    n_aggs = rng.randint(1, 3)
+    aggs = rng.sample(FUZZ_AGG_EXPRS, n_aggs)
+    q = f"select {', '.join(keys + aggs)} from t"
+    if rng.random() < 0.6:
+        terms = rng.sample(FUZZ_WHERE_TERMS, rng.randint(1, 3))
+        clause = terms[0]
+        for t in terms[1:]:
+            clause += f" {rng.choice(['and', 'or'])} {t}"
+        q += " where " + clause
+    if keys:
+        q += " group by " + ", ".join(keys)
+        if rng.random() < 0.3:
+            agg = rng.choice(aggs)
+            thr = rng.choice([0, 1, 100, 100000])
+            op = rng.choice([">", ">=", "<", "!="])
+            q += f" having {agg} {op} {thr}"
+    ordinals = ", ".join(f"{i + 1}{' desc' if rng.random() < 0.3 else ''}"
+                         for i in range(len(keys) + n_aggs))
+    q += f" order by {ordinals}"
+    if rng.random() < 0.3:
+        q += f" limit {rng.choice([0, 1, 5, 1000])}"
+    return q + ";"
+
+
+FUZZ_ROUTE_AGGS = ["count(1)", "count(v)", "sum(v)", "sum(k2)", "sum(v + 1)", "sum(k1)",
+                   "sum(v) + count(1)"]
+FUZZ_ROUTE_WHERE = ["v < 5000", "k1 > 5", "k2 >= 0", "v % 7 = 1", "k2 < 10", "v = 77",
+                    "5000 >= v"]
+
+
+def fuzz_route_case(seed):
+    """tests/test_torch_fuzz_groupby.py:_route_case."""
+    rng = random.Random(5000 + seed)
+    tables = fuzz_group_table(rng)
+    key = rng.choice(["k1", "k2"])
+    aggs = rng.sample(FUZZ_ROUTE_AGGS, rng.randint(1, 3))
+    q = f"select {key}, {', '.join(aggs)} from t"
+    if rng.random() < 0.7:
+        terms = rng.sample(FUZZ_ROUTE_WHERE, rng.randint(1, 3))
+        clause = terms[0]
+        for t in terms[1:]:
+            clause += f" {rng.choice(['and', 'or'])} {t}"
+        q += " where " + clause
+    q += f" group by {key} order by 1"
+    if rng.random() < 0.3:
+        q += f" limit {rng.choice([1, 5, 1000])}"
+    return tables, q + ";"
+
+
+FUZZ_ORDER_SIZES = [1, 3, 50, 700, 5000]
+
+
+def fuzz_order_table(rng):
+    """tests/test_fuzz_device_order.py:_make_table."""
+    n = rng.choice(FUZZ_ORDER_SIZES)
+    npr = np.random.default_rng(rng.randrange(1 << 30))
+    u = npr.integers(0, 9, n).astype(np.uint64)
+    if n > 2 and rng.random() < 0.5:
+        hot = npr.integers(0, n, max(n // 20, 1))
+        u[hot] = np.uint64(0xFFFFFFFFFFFFFFFF)
+    u_valid = npr.random(n) >= (0.2 if rng.random() < 0.5 else 0.0)
+    i = npr.integers(-50, 50, n).astype(np.int64)
+    if n > 2 and rng.random() < 0.3:
+        i[npr.integers(0, n, 2)] = np.iinfo(np.int64).min
+        i[npr.integers(0, n, 2)] = np.iinfo(np.int64).max
+    f = (npr.integers(-512, 512, n) / 64.0).astype(np.float64)
+    if n > 4 and rng.random() < 0.6:
+        f[npr.integers(0, n, max(n // 30, 1))] = np.nan
+        f[npr.integers(0, n, max(n // 30, 1))] = -0.0
+        f[npr.integers(0, n, 1)] = np.inf
+        f[npr.integers(0, n, 1)] = -np.inf
+    f_valid = npr.random(n) >= (0.15 if rng.random() < 0.5 else 0.0)
+    labels = [b"", b"NULL", b"a", b"Zz", b"mid", b"\xc3\xa9"]
+    sv = [labels[k] for k in npr.integers(0, len(labels), n)]
+    if rng.random() < 0.5:
+        null_at = npr.random(n) < 0.25
+        sv = [None if m else v for v, m in zip(sv, null_at)]
+    return {"t": Relation(
+        ["u", "i", "f", "s"],
+        [Column(SType.UINT64, np.where(u_valid, u, 0).astype(np.uint64), u_valid),
+         Column(SType.INT64, i, np.ones(n, bool)),
+         Column(SType.FLOAT64, np.where(f_valid, f, 0.0), f_valid),
+         Column.from_strings(sv)],
+        n)}
+
+
+FUZZ_KEY_EXPRS = ["u", "i", "f", "s", "u + i", "i * 2", "f + 1.5", "u % 4"]
+FUZZ_ORDER_WHERE = ["u < 7", "i >= 0", "f < 2.0", "u % 2 = 0", "i + u > 3"]
+
+
+def fuzz_order_query(rng):
+    """tests/test_fuzz_device_order.py:_gen_order_query."""
+    nk = rng.randint(1, 3)
+    keys = rng.sample(FUZZ_KEY_EXPRS, nk)
+    specs = ", ".join(
+        f"{k}{' desc' if rng.random() < 0.4 else (' asc' if rng.random() < 0.3 else '')}"
+        for k in keys)
+    q = "select u, i, f, s, u + i as x from t"
+    if rng.random() < 0.6:
+        terms = rng.sample(FUZZ_ORDER_WHERE, rng.randint(1, 2))
+        q += " where " + f" {rng.choice(['and', 'or'])} ".join(terms)
+    q += f" order by {specs}"
+    if rng.random() < 0.6:
+        q += f" limit {rng.choice([0, 1, 2, 9, 100, 10000])}"
+        if rng.random() < 0.4:
+            q += f" offset {rng.choice([0, 1, 5, 50])}"
+    return q + ";"
+
+
+def topk_table(n, seed):
+    """tests/test_device_topk.py:_table (with NULLs)."""
+    npr = np.random.default_rng(seed)
+    u = npr.integers(0, 50, n).astype(np.uint64)
+    i = npr.integers(-25, 25, n).astype(np.int64)
+    f = (npr.integers(-256, 256, n) / 32.0).astype(np.float64)
+    b = npr.random(n) < 0.5
+    sv = [[b"alpha", b"Beta", b"NULL", b"", b"zeta", b"m"][k] for k in npr.integers(0, 6, n)]
+    null_at = npr.random(n) < 0.2
+    u_valid = ~(npr.random(n) < 0.15)
+    f_valid = ~(npr.random(n) < 0.15)
+    sv = [None if m else v for v, m in zip(sv, null_at)]
+    return {"t": Relation(
+        ["u", "i", "f", "b", "s"],
+        [Column(SType.UINT64, np.where(u_valid, u, 0).astype(np.uint64), u_valid),
+         Column(SType.INT64, i, np.ones(n, bool)),
+         Column(SType.FLOAT64, np.where(f_valid, f, 0.0), f_valid),
+         Column(SType.BOOL, b, np.ones(n, bool)),
+         Column.from_strings(sv)],
+        n)}
+
+
+def topk_case(seed):
+    """tests/test_torch_order_routes.py:test_scan_topk_fuzz_port_matches_jax_host_engine."""
+    keys = ["u", "i", "f", "s", "b"]
+    wheres = ["u < 30", "i >= 0", "f > 0.0", "u % 3 = 1"]
+    rng = random.Random(4000 + seed)
+    tables = topk_table(rng.choice([1, 9, 100, 1500]), seed)
+    nk = rng.choice([1, 1, 2, 3])
+    order = ", ".join(f"{k}{' desc' if rng.random() < 0.4 else ''}" for k in rng.sample(keys, nk))
+    rest = ", ".join(k for k in keys if k not in order)
+    q = "select u, i, f, b, s from t"
+    if rng.random() < 0.6:
+        q += " where " + rng.choice(wheres)
+    q += f" order by {order}, {rest}"
+    if rng.random() < 0.75:
+        q += f" limit {rng.choice([1, 3, 17, 400])}"
+        if rng.random() < 0.3:
+            q += f" offset {rng.choice([1, 5, 50])}"
+    return tables, q + ";"
+
+
+def fuzz_join_tables(rng):
+    """tests/test_fuzz_device_parity.py:_make_join_tables."""
+    n = rng.choice([0, 1, 100, 5000, 20000])
+    d = rng.choice([1, 16, 257, 1024])
+    npr = np.random.default_rng(rng.randrange(1 << 30))
+    dk = npr.permutation(d * 3)[:d].astype(np.uint64)
+    dattr = npr.integers(0, 9, max(d, 1))[:d].astype(np.uint64)
+    fk = dk[npr.integers(0, d, max(n, 1))][:n].astype(np.uint64)
+    if n and rng.random() < 0.5:
+        miss = npr.random(n) < 0.1
+        fk = np.where(miss, fk + np.uint64(d * 5), fk)
+    fv = npr.integers(0, 1000, max(n, 1))[:n].astype(np.uint64)
+    fv_valid = npr.random(max(n, 1))[:n] < (1.0 if rng.random() < 0.5 else 0.9)
+    ff = (npr.integers(-2048, 2048, max(n, 1))[:n] / 64.0).astype(np.float64)
+    return {
+        "facts": Relation(
+            ["k", "v", "f"],
+            [Column(SType.UINT64, fk, np.ones(n, bool)),
+             Column(SType.UINT64, np.where(fv_valid, fv, 0).astype(np.uint64), fv_valid.copy()),
+             Column(SType.FLOAT64, ff, np.ones(n, bool))],
+            n),
+        "dims": Relation(
+            ["k", "attr"],
+            [Column(SType.UINT64, dk, np.ones(d, bool)),
+             Column(SType.UINT64, dattr, np.ones(d, bool))],
+            d),
+    }
+
+
+FUZZ_JOIN_AGGS = ["count(1)", "sum(facts.v)", "min(facts.v)", "max(facts.v)", "sum(facts.f)",
+                  "mean(facts.f)", "count(facts.v)"]
+FUZZ_JOIN_WHERES = ["facts.v < 500", "facts.f > 0.0", "facts.v % 3 = 0"]
+
+
+def fuzz_join_query(rng):
+    """tests/test_fuzz_device_parity.py:_gen_join_query."""
+    aggs = rng.sample(FUZZ_JOIN_AGGS, rng.randint(1, 3))
+    jt = "join" if rng.random() < 0.8 else "left join"
+    q = f"select dims.attr, {', '.join(aggs)} from facts {jt} dims on facts.k = dims.k"
+    if rng.random() < 0.5:
+        q += " where " + rng.choice(FUZZ_JOIN_WHERES)
+    q += " group by dims.attr"
+    ordinals = ", ".join(str(i + 1) for i in range(1 + len(aggs)))
+    return q + f" order by {ordinals};"
+
+
+FUZZ_ROUTABLE_AGGS = ["count(1)", "sum(facts.v)", "count(facts.v)", "sum(facts.v + 3)",
+                      "sum(facts.v * 2)", "sum(facts.v) + count(1)"]
+FUZZ_ROUTABLE_WHERES = ["facts.v < 500", "facts.v % 3 = 0", "facts.f > 0.0",
+                        "facts.v >= 100 and facts.v < 900"]
+
+
+def routable_join_query(rng):
+    """tests/test_torch_join_routes.py:_gen_routable_query."""
+    aggs = rng.sample(FUZZ_ROUTABLE_AGGS, rng.randint(1, 4))
+    q = f"select dims.attr, {', '.join(aggs)} from facts join dims on facts.k = dims.k"
+    if rng.random() < 0.6:
+        q += " where " + rng.choice(FUZZ_ROUTABLE_WHERES)
+    q += " group by dims.attr"
+    if rng.random() < 0.5:
+        q += " order by " + ", ".join(str(i + 1) for i in range(1 + len(aggs)))
+    return q + ";"
+
+
+def _with_rng(make_tables, make_query, base):
+    def case(seed):
+        rng = random.Random(base + seed)
+        tables = make_tables(rng)
+        return tables, make_query(rng)
+    return case
+
+
+_GROUP_ROUTES = ("FUSED_GROUPBY_COUNT", "MULTI_SUM_GROUPBY_COUNT", "GENERAL_GROUPBY_COUNT")
+_ORDER_ROUTES = ("SCAN_TOPK_COUNT", "SCAN_ORDER_COUNT")
+
+
+class Corpus:
+    """One fuzz corpus of phase 9: ``seeds`` seeds of ``case(seed) ->
+    (tables, sql)``; the route counters a seed may raise; the CPU test's
+    floor, on the route runs summed over the first ``upto`` seeds (``by
+    == "runs"``) or on the seeds that took a route (``"seeds"``); the
+    first ``mesh_seeds`` seeds also run over the mesh; ``expect(tables,
+    sql)``, where given, is the route runs each seed must show."""
+
+    def __init__(self, seeds, case, counters, by, floor, upto=None, mesh_seeds=0,
+                 expect=None):
+        self.seeds, self.case, self.counters = seeds, case, counters
+        self.by, self.floor, self.upto = by, floor, upto or seeds
+        self.mesh_seeds, self.expect = mesh_seeds, expect
+
+
+def _join_expect(tables, sql):
+    """test_join_fuzz_port_matches_jax_host_engine: only a left join or an
+    empty fact table keeps a plan off the route."""
+    return int(" left join " not in sql and tables["facts"].num_rows > 0)
+
+
+FUZZ_CORPORA = {
+    "groupby": Corpus(60, _with_rng(fuzz_group_table, fuzz_group_query, 1000), _GROUP_ROUTES,
+                      "runs", 24, upto=40, mesh_seeds=40),
+    "groupby_route": Corpus(50, fuzz_route_case, _GROUP_ROUTES, "runs", 12),
+    "order": Corpus(30, _with_rng(fuzz_order_table, fuzz_order_query, 3000), _ORDER_ROUTES,
+                    "seeds", 15, mesh_seeds=30),
+    "scan_topk": Corpus(25, topk_case, _ORDER_ROUTES, "seeds", 25,
+                        expect=lambda tables, sql: 1),
+    "join": Corpus(20, _with_rng(fuzz_join_tables, fuzz_join_query, 5000),
+                   ("JOIN_GROUPBY_COUNT",), "runs", 10, expect=_join_expect),
+    "join_routable": Corpus(20, _with_rng(fuzz_join_tables, routable_join_query, 7000),
+                            ("JOIN_GROUPBY_COUNT",), "runs", 10, expect=_join_expect),
+}
+FUZZ_MESH_SHARDS = 4
+
+
+def _outcome(rt, provider, sql):
+    """(columns, rows), or the error by type and message: a few generated
+    queries are type errors and must be so under every device."""
+    try:
+        res = rt.build_query_plan(rt.new_transaction(provider), sql).execute(0)
+        return res.columns, res.rows
+    except Exception as e:  # noqa: BLE001 - compared by name and message
+        return ("error", type(e).__name__, str(e))
+
+
+def fuzz_corpus(name, runtimes):
+    """One corpus: every seed under each Runtime of ``runtimes`` (the
+    card's first, the host engine's last) and, for its mesh seeds, over a
+    MeshTableProvider of FUZZ_MESH_SHARDS shards on the card (served by
+    the host engine's Runtime): every outcome equal to the host engine's,
+    each Runtime taking the same routes. Returns the counts."""
+    corpus = FUZZ_CORPORA[name]
+    host_rt = runtimes[-1]
+    runs = routed = errors = 0
+    mesh = [0] * 3  # seeds on a mesh route, on a mesh sort, on the sample sort
+
+    def route_runs():
+        return sum(getattr(device_exec, c) for c in corpus.counters)
+
+    for seed in range(corpus.seeds):
+        tables, sql = corpus.case(seed)
+        provider = _provider_of(tables)
+        want = _outcome(host_rt, provider, sql)
+        errors += want[0] == "error"
+        took = []
+        for rt in runtimes[:-1]:
+            before = route_runs()
+            got = _outcome(rt, provider, sql)
+            check(got == want, f"phase 9: {name} seed {seed} on {rt.device}: {sql!r}"
+                  f" differs from the host engine")
+            took.append(route_runs() - before)
+        check(len(set(took)) == 1, f"phase 9: {name} seed {seed}: routes {took} by device")
+        if corpus.expect is not None:
+            check(took[0] == corpus.expect(tables, sql),
+                  f"phase 9: {name} seed {seed}: {took[0]} route runs")
+        runs += took[0] if seed < corpus.upto else 0
+        routed += took[0] > 0
+        if seed < corpus.mesh_seeds:
+            mp = MeshTableProvider(n_shards=FUZZ_MESH_SHARDS, device=runtimes[0].device.type)
+            for tname, rel in tables.items():
+                mp.add_table(tname, rel)
+            before = _mesh_counters()
+            got = _outcome(host_rt, mp, sql)
+            check(got == want, f"phase 9: {name} seed {seed} over {FUZZ_MESH_SHARDS} shards:"
+                  f" {sql!r} differs from the host engine")
+            after = _mesh_counters()
+            mesh[0] += sum(after[:3]) > sum(before[:3])
+            mesh[1] += after[3] > before[3]
+            mesh[2] += after[4] > before[4]
+    count = runs if corpus.by == "runs" else routed
+    check(count >= corpus.floor, f"phase 9: {name}: {count} {corpus.by} < {corpus.floor}")
+    out = dict(seeds=corpus.seeds, errors=errors, floor_by=corpus.by, count=count,
+               floor=corpus.floor)
+    if name == "groupby":  # test_fuzz_seeds_take_the_mesh_routes
+        check(mesh[0] >= 15, f"phase 9: {mesh[0]} of 40 fuzz queries took a mesh route")
+        out["mesh_routed"] = mesh[0]
+    if name == "order":  # test_order_fuzz_seeds_take_the_mesh_sorts
+        check(mesh[1] >= 8 and 0 < mesh[2] < mesh[1],
+              f"phase 9: mesh sorts {mesh[1]}, sample sorts {mesh[2]}")
+        out.update(mesh_sorted=mesh[1], mesh_sample_sorts=mesh[2])
+    return out
+
+
+def mod_by_zero(runtimes):
+    """tests/test_fuzz_device_parity.py:test_mod_by_zero_raises_on_device_path
+    under every Runtime: integer modulo by zero raises."""
+    provider = _provider_of(fuzz_group_table(random.Random(7)))
+    sql = "select k1, sum(v % 0) from t group by k1 order by 1;"
+    for rt in runtimes:
+        got = _outcome(rt, provider, sql)
+        check(got[0] == "error" and "modulo by zero" in got[2],
+              f"phase 9: modulo by zero on {rt.device}: {got!r}")
+
+
+def phase_fuzz(device):
+    """Phase 9: every corpus under Runtime(device), Runtime("cpu") and the
+    host engine, the mesh corpora over FUZZ_MESH_SHARDS shards on the
+    card; then modulo by zero. Returns the counts by corpus and the
+    kernels' launches."""
+    t0 = time.perf_counter()
+    runtimes = [Runtime(device=device), Runtime(device="cpu"), Runtime(device=None)]
+    zero_launch_counts()
+    out = {}
+    for name in FUZZ_CORPORA:
+        out[name] = fuzz_corpus(name, runtimes)
+        log(f"phase 9: {name}: {out[name]}")
+    mod_by_zero(runtimes)
+    launches = launch_counts()
+    for k in ("groupby_agg", "groupby_multi_agg", "dim_join_gid", "hash_groupby"):
+        check(launches[k] > 0, f"phase 9: {k} never launched")
+    log(f"phase 9: {sum(c['seeds'] for c in out.values())} fuzz seeds equal under"
+        f" {[str(r.device) for r in runtimes]} and over {FUZZ_MESH_SHARDS} shards;"
+        f" modulo by zero raises; launches {launches} in {time.perf_counter() - t0:.1f} s")
+    return dict(corpora=out, launches=launches, seconds=time.perf_counter() - t0)
+
+
 _REPLACES = {
     "hash_groupby": ("eventql_tpu_torch/kernels/csrc/hash_groupby.cu",
                      "eventql_tpu/kernels/groupby.py:246 (not a TPU kernel:"
@@ -2885,6 +3619,9 @@ def main():
     shard_shapes = mesh_shapes(mesh_run.pop("first_calls"))
     multi = phase_multihost(mesh_run["kernel_tier"])
     multi_launches = multi["backends"]["gloo"]["launches"]
+    storage, storage_launches, storage_first = phase_storage(device)
+    storage_shapes = mesh_shapes(storage_first, "phase 8", "stored")
+    fuzz = phase_fuzz(device)
     kernels = []
     for name, t in times.items():
         source, replaces, entry = _REPLACES[name]
@@ -2892,6 +3629,7 @@ def main():
         launches_by_path = {p: c[name] for p, c in run["launches_by_path"].items()}
         launches_by_path["mesh"] = mesh_run["launches"][name]
         launches_by_path["multihost"] = multi_launches[name]
+        launches_by_path["storage"] = sum(c[name] for c in storage_launches.values())
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -2911,6 +3649,7 @@ def main():
             "bytes": t["bytes"],
             "other_shapes": t["other_shapes"],
             "mesh_shape": shard_shapes.get(name),
+            "storage_shape": storage_shapes.get(name),
         })
         # probe_join_gid: its table-build kernels alone; dim_join_gid: one
         # row (its table build) and the earlier kernel; hash_groupby: its
@@ -2930,6 +3669,8 @@ def main():
                              "queries": mesh_run["per_query"],
                              "kernel_tier": mesh_run["kernel_tier"]}}))
     log(json.dumps({"multihost": multi}))
+    log(json.dumps({"storage": storage}))
+    log(json.dumps({"fuzz": fuzz}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

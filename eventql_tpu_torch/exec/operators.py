@@ -11,10 +11,13 @@ This is the port's own copy of the host engine. It is the semantic
 reference of the CUDA routes (exec/device_exec.py: GROUP BY, fact-dim
 JOIN + GROUP BY, ORDER BY, ORDER BY ... LIMIT; exec/mesh_exec.py: the
 same over a table sharded on a mesh) and serves every plan the routes
-decline.
-Tiers that are not ported yet (partitioned and cluster providers, the
-query cache, charts, nested scans) raise RuntimeError_ naming what is
-missing instead of being silently skipped.
+decline. A partitioned provider (parallel/partitioned.py) merges host
+partials per partition, the query cache (exec/query_cache.py) answers a
+repeated GROUP BY over an immutable table file before any route, and
+nested or WITHIN RECORD scans go through columnar/nested_scan.py.
+DRAW charts are not ported yet and raise RuntimeError_ naming what is
+missing instead of being silently skipped; the cluster provider
+(parallel/cluster.py) has no counterpart yet.
 """
 
 from __future__ import annotations
@@ -170,23 +173,75 @@ def _not_ported(what: str):
 
 
 def _exec_seqscan(node: qn.SequentialScanNode, txn) -> Relation:
-    # nested/repeated columns and WITHIN RECORD aggregation need the
-    # Dremel row-assembly path (columnar.nested_scan), which is not
-    # ported; flat scans use the vectorized column engine below.
+    # nested/repeated columns and WITHIN RECORD aggregation go through
+    # the Dremel row-assembly path (columnar.nested_scan); flat scans
+    # use the vectorized column engine below.
     reader = getattr(txn.tables, "get_reader", lambda n: None)(node.table_name)
-    if reader is not None:
-        needs_nested = node.aggr_strategy != qn.SequentialScanNode.NO_AGGREGATION
-        if not needs_nested:
-            for cname, _ctype in node.input_columns:
-                cfg = reader.column_config(cname)
-                if cfg is not None and cfg.rlevel_max > 0:
-                    needs_nested = True
-                    break
-        if needs_nested:
-            raise _not_ported("nested scan (columnar.nested_scan)")
+    if _needs_nested_scan(node, reader):
+        from eventql_tpu_torch.columnar.nested_scan import execute_nested_scan
+
+        out = execute_nested_scan(node, reader)
+        _count_scan(txn, reader.num_rows, 0)
+        return out
 
     table = txn.get_table_data(node.table_name)  # Relation of ALL table cols
     return _exec_seqscan_relation(node, table)
+
+
+def _needs_nested_scan(node: qn.SequentialScanNode, reader) -> bool:
+    """WITHIN RECORD aggregation, or an input column below a repetition,
+    on a table with a nested reader."""
+    if reader is None:
+        return False
+    if node.aggr_strategy != qn.SequentialScanNode.NO_AGGREGATION:
+        return True
+    for cname, _ctype in node.input_columns:
+        cfg = reader.column_config(cname)
+        if cfg is not None and cfg.rlevel_max > 0:
+            return True
+    return False
+
+
+def _on_device(node, txn) -> bool:
+    """The CUDA routes may serve ``node``: the transaction has a device,
+    and no scan beneath the node needs the Dremel row assembly. The
+    routes read a table's flat relation, where a leaf under a repeated
+    record holds one value a record, so such plans go to the host engine
+    (the JAX package's device routes do not check this)."""
+    if getattr(txn, "device", None) is None:
+        return False
+    get_reader = getattr(txn.tables, "get_reader", None)
+    if get_reader is None:
+        return True
+    stack = [node]
+    while stack:
+        n = stack.pop()
+        if isinstance(n, qn.SequentialScanNode):
+            if _needs_nested_scan(n, get_reader(n.table_name)):
+                return False
+            continue
+        for attr in ("table", "base_table", "joined_table", "subquery"):
+            child = getattr(n, attr, None)
+            if isinstance(child, qn.QueryTreeNode):
+                stack.append(child)
+    return True
+
+
+def _scan_bytes(node: qn.SequentialScanNode, table: Relation) -> int:
+    """Bytes the scan reads: the input columns' physical buffers."""
+    by_name = dict(zip(table.names, table.columns))
+    total = 0
+    for cname, _ctype in node.input_columns:
+        c = by_name.get(cname)
+        if c is not None:
+            total += c.data.nbytes + c.valid.nbytes
+    return total
+
+
+def _count_scan(txn, rows: int, nbytes: int):
+    ctx = getattr(txn, "exec_ctx", None)
+    if ctx is not None:
+        ctx.count_scan(rows, nbytes)
 
 
 def _exec_seqscan_relation(node: qn.SequentialScanNode, table: Relation) -> Relation:
@@ -581,6 +636,8 @@ def _merge_partials(
     """Merge shard partials with the accumulator algebra of
     VM::mergeInstance (reference: vm.cc:274-326; merge loop
     groupby.cc:552-637)."""
+    from eventql_tpu_torch.parallel.partitioned import _concat_columns
+
     nkeys = len(partials[0].key_cols)
     total_groups = sum(p.n_groups for p in partials)
     if total_groups == 0:
@@ -683,26 +740,66 @@ def _merge_partials(
     return Relation(names, out_cols, n_out)
 
 
-def _concat_columns(cols: List[Column]) -> Column:
-    """Row-wise concatenation of same-typed columns (strings re-encoded
-    into one dictionary). The port's copy of
-    eventql_tpu/parallel/partitioned.py:_concat_columns."""
-    stype = cols[0].stype
-    if stype == SType.STRING:
-        vals = []
-        for c in cols:
-            strs = c.materialize_strings()
-            for i in range(len(c.data)):
-                vals.append(bytes(strs[i]) if c.valid[i] else None)
-        return Column.from_strings(vals)
-    data = np.concatenate([c.data for c in cols])
-    valid = np.concatenate([c.valid for c in cols])
-    return Column(stype, data, valid)
+def _group_by_fingerprint(node: qn.GroupByNode) -> str:
+    """Content fingerprint of a GroupBy plan (reference: the query cache
+    keys partial aggregates by scan cache key + expression fingerprint,
+    groupby.cc:255-295)."""
+    from eventql_tpu_torch.exec.query_cache import QueryCache
+
+    parts = []
+    scan = node.table
+    if isinstance(scan, qn.SequentialScanNode):
+        parts.append(scan.table_name)
+        parts.extend(sl.expr.to_sql() for sl in scan.select_list)
+        parts.append(scan.where_expr.to_sql() if scan.where_expr else "")
+    parts.extend(e.to_sql() for e in node.group_exprs)
+    parts.extend(sl.expr.to_sql() for sl in node.select_list)
+    return QueryCache.fingerprint(*parts)
 
 
 def _exec_group_by(node: qn.GroupByNode, txn) -> Relation:
-    if getattr(txn, "query_cache", None) is not None:
-        raise _not_ported("query cache (exec.query_cache)")
+    # on-disk query cache: only for scans over immutable table files.
+    # The key is the file and the plan, never the device: every route
+    # below returns the host engine's groups and values (their order is
+    # fixed only by an ORDER BY), so a result stored under one device
+    # answers another. A hit launches no kernel.
+    cache = getattr(txn, "query_cache", None)
+    cache_key = None
+    if cache is not None and isinstance(node.table, qn.SequentialScanNode):
+        key_fn = getattr(txn.tables, "table_cache_key", None)
+        file_key = key_fn(node.table.table_name) if key_fn else None
+        if file_key is not None:
+            cache_key = QueryCache_fingerprint_combine(
+                file_key, _group_by_fingerprint(node)
+            )
+            cached = cache.get(cache_key)
+            if cached is not None:
+                return cached
+
+    result = _exec_group_by_impl(node, txn)
+    if cache_key is not None:
+        cache.store(cache_key, result)
+    return result
+
+
+def QueryCache_fingerprint_combine(file_key: str, plan_fp: str) -> str:
+    from eventql_tpu_torch.exec.query_cache import QueryCache
+
+    return QueryCache.fingerprint(file_key, plan_fp)
+
+
+def _exec_group_by_impl(node: qn.GroupByNode, txn) -> Relation:
+    from eventql_tpu_torch.parallel.partitioned import (
+        PartitionedTableProvider,
+        execute_partitioned_group_by,
+    )
+
+    if isinstance(txn.tables, PartitionedTableProvider):
+        # host partials per partition, merged as GroupByMerge does; None
+        # -> shape not distributable, the whole-table paths below serve it
+        result = execute_partitioned_group_by(node, txn.tables, txn)
+        if result is not None:
+            return result
 
     if _on_mesh(txn):
         # the mesh tier: per-shard partial aggregation and an exchange of
@@ -721,7 +818,7 @@ def _exec_group_by(node: qn.GroupByNode, txn) -> Relation:
         if result is not None:
             return result
 
-    if getattr(txn, "device", None) is not None:
+    if _on_device(node, txn):
         # the CUDA routes, in the JAX package's order: the bounded string
         # / numeric-key route, the join route, then the general (hash
         # aggregate) route for every other scan-child plan its gate
@@ -836,9 +933,7 @@ def _exec_order_by(node: qn.OrderByNode, txn) -> Relation:
         if result is not None:
             return result
 
-    if getattr(txn, "device", None) is not None and isinstance(
-        node.table, qn.SequentialScanNode
-    ):
+    if isinstance(node.table, qn.SequentialScanNode) and _on_device(node, txn):
         # the device scan-order route; None -> shape not routable
         from eventql_tpu_torch.exec.device_exec import (
             try_execute_device_scan_order,
@@ -890,9 +985,7 @@ def _exec_limit(node: qn.LimitNode, txn) -> Relation:
         if result is not None:
             return result
 
-    if getattr(txn, "device", None) is not None and isinstance(
-        node.table, qn.OrderByNode
-    ):
+    if isinstance(node.table, qn.OrderByNode) and _on_device(node, txn):
         # the device top-k route; None -> shape not routable
         from eventql_tpu_torch.exec.device_exec import (
             try_execute_device_scan_topk,

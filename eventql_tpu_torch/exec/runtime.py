@@ -194,8 +194,21 @@ class QueryPlan:
         return ResultList.from_relation(result_columns, rel)
 
     def execute_stream(self, idx: int):
-        """Streaming cursors (exec.streaming) are not ported yet: every
-        shape takes the materializing execute()."""
+        """Execute statement `idx` with bounded memory when its plan
+        shape allows: returns a StreamingResultList whose rows generator
+        pulls storage chunks through the row-local operators as the
+        transport consumes them (reference: ResultCursor,
+        sql/result_cursor.h:35-75); falls back to the materializing
+        execute() for blocking shapes (GROUP BY / ORDER BY / JOIN), which
+        take the transaction's device routes."""
+        from eventql_tpu_torch.exec import streaming
+
+        node = self.nodes[idx]
+        if streaming.streamable(node, self.txn):
+            return streaming.StreamingResultList(
+                node.get_result_columns(),
+                streaming.stream_node(node, self.txn),
+            )
         return self.execute(idx)
 
     def _execute_traced(self, node):

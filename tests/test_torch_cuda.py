@@ -556,3 +556,103 @@ def test_process_mesh_over_nccl_equals_the_cpu_mesh(cuda_device, tmp_path):
     if torch.cuda.device_count() < 2:
         pytest.skip("NCCL needs a card for each of the two processes")
     _process_mesh_equals_the_cpu_mesh(str(tmp_path), "nccl")
+
+
+def test_fuzz_corpora_on_the_card_equal_the_plain_versions(cuda_device):
+    """chip_smoke.py phase 9: every seed of the CPU fuzz corpora under
+    Runtime(device="cuda"), Runtime(device="cpu") and the host engine
+    (and the group-by and order seeds over 4 shards on the card): equal
+    ResultLists, the CPU tests' route floors, modulo by zero raising."""
+    import chip_smoke
+
+    out = chip_smoke.phase_fuzz(cuda_device)
+    assert set(out["corpora"]) == set(chip_smoke.FUZZ_CORPORA)
+    assert out["launches"]["hash_groupby"] > 0 and out["launches"]["groupby_agg"] > 0
+
+
+def test_stored_table_on_the_card_equals_the_cpu_route(cuda_device, tmp_path):
+    """A 2^20-row table written by the LSM table service in two commits and
+    reopened: phase 4's queries under Runtime(device="cuda") give the rows
+    of Runtime(device="cpu"), which equal numpy, on the same routes."""
+    import chip_smoke
+    from eventql_tpu_torch.db.lsm import DurableTableService
+    from eventql_tpu_torch.exec import device_exec
+    from eventql_tpu_torch.exec.runtime import Runtime
+
+    n = 1 << 20
+    cols, dictionary = chip_smoke.make_table(n, seed=21)
+    dims = chip_smoke.make_dims(seed=22)
+    chip_smoke.write_storage(str(tmp_path), chip_smoke.stored_columns(cols), dictionary, dims,
+                             n, 2)
+    svc = DurableTableService(str(tmp_path))
+    c = dict(cols, cat=cols["cat"] - chip_smoke.CAT_LO)
+    # (sql, expected rows, whether they are compared as a set)
+    sqls = [(q[1], q[4], True) for q in chip_smoke.queries(c, dictionary, cat_lo=0)]
+    sqls += [(sql, rows, False)
+             for _name, sql, rows in chip_smoke.general_queries(c, dictionary, n, cat_lo=0)]
+    sqls += [(q[1], q[4], False) for q in chip_smoke.order_queries(cols, dictionary, n)]
+    sqls += [(q[1], q[3], False) for q in chip_smoke.join_queries(cols, dims, n)]
+    counters = ("FUSED_GROUPBY_COUNT", "MULTI_SUM_GROUPBY_COUNT", "GENERAL_GROUPBY_COUNT",
+                "SCAN_TOPK_COUNT", "SCAN_ORDER_COUNT", "JOIN_GROUPBY_COUNT")
+    for sql, expected, as_set in sqls:
+        rows, took = [], []
+        for device in (cuda_device, "cpu"):
+            before = [getattr(device_exec, k) for k in counters]
+            rows.append(chip_smoke.run_query(Runtime(device=device), svc, sql).rows)
+            took.append([getattr(device_exec, k) - b for k, b in zip(counters, before)])
+        assert rows[0] == rows[1], sql
+        assert took[0] == took[1] and sum(took[0]) == 1, (sql, took)
+        assert (sorted(rows[0]) if as_set else rows[0]) == expected, sql
+
+
+def test_query_cache_hit_launches_no_kernel_on_the_card(cuda_device, tmp_path):
+    """A repeated GROUP BY over a CSTableScanProvider with a QueryCache:
+    the miss launches the kernel once, the hit launches nothing and
+    returns the same rows."""
+    import chip_smoke
+    from eventql_tpu_torch.columnar.cstable_v2 import write_cstable_v2
+    from eventql_tpu_torch.columnar.providers import CSTableScanProvider
+    from eventql_tpu_torch.exec.query_cache import QueryCache
+    from eventql_tpu_torch.exec.runtime import Runtime
+
+    n = 1 << 18
+    cols, dictionary = chip_smoke.make_table(n, seed=23)
+    path = str(tmp_path / "t.cst")
+    write_cstable_v2(path, chip_smoke.provider_of(cols, dictionary, n).get_table_data("t"))
+    provider = CSTableScanProvider("t", path)
+    cache = QueryCache(str(tmp_path / "qcache"))
+    rt = Runtime(device=cuda_device)
+    sql = "select k, count(1), sum(v) from t where v < 800 group by k;"
+    out = []
+    for want in (1, 0):
+        before = sum(chip_smoke.launch_counts().values())
+        out.append(rt.build_query_plan(rt.new_transaction(provider, query_cache=cache),
+                                       sql).execute(0).rows)
+        assert sum(chip_smoke.launch_counts().values()) - before == want
+    assert out[0] == out[1] and len(out[0]) == chip_smoke.N_KEYS
+
+
+def test_nested_plans_take_no_route_on_the_card(cuda_device, tmp_path):
+    """A scan that needs the Dremel row assembly stays on the host engine
+    under Runtime(device="cuda") (the routes read the flat relation)."""
+    import json
+
+    import chip_smoke
+    from eventql_tpu_torch.db.lsm import DurableTableService
+    from eventql_tpu_torch.exec.runtime import Runtime
+
+    svc = DurableTableService(str(tmp_path), arena_flush_rows=40)
+    host = Runtime(device=None)
+    host.build_query_plan(host.new_transaction(svc), (
+        "CREATE TABLE n (id uint64, tags REPEATED string,"
+        " ev REPEATED RECORD (v uint64), PRIMARY KEY (id));")).execute(0)
+    for i in range(100):
+        svc.insert_json("n", json.dumps({"id": i, "tags": ["a"] * (i % 3),
+                                         "ev": [{"v": j} for j in range(i % 4)]}))
+    for sql in ("select count(ev.v), sum(ev.v) from n;",
+                "select id % 5, count(ev.v) from n group by id % 5 order by 1;",
+                "select ev.v from n order by ev.v desc limit 7;"):
+        before = sum(chip_smoke.launch_counts().values())
+        got = chip_smoke.run_query(Runtime(device=cuda_device), svc, sql).rows
+        assert sum(chip_smoke.launch_counts().values()) == before, sql
+        assert got == chip_smoke.run_query(host, svc, sql).rows, sql

@@ -204,6 +204,75 @@ print("ISOLATED-OK")
 """
 
 
+_STORAGE_MODULES = [
+    "columnar.native", "columnar.cstable", "columnar.cstable_writer",
+    "columnar.cstable_v2", "db.tablet_index", "db.shredded_record_list",
+    "db.table_service", "columnar.shredder", "parallel.partitioned", "db.lsm",
+    "columnar.csv_ingest", "columnar.providers", "exec.query_cache",
+    "exec.streaming", "columnar.nested_scan",
+]
+
+_STORAGE_PROGRAM = r"""
+import importlib, json, os, sys, tempfile
+for name in MODULES:
+    importlib.import_module("eventql_tpu_torch." + name)
+from eventql_tpu_torch.columnar.providers import CSTableScanProvider
+from eventql_tpu_torch.db.lsm import DurableTableService
+from eventql_tpu_torch.exec import device_exec
+from eventql_tpu_torch.exec.query_cache import QueryCache
+from eventql_tpu_torch.exec.runtime import Runtime
+
+rt = Runtime(device="cpu")
+def q(svc, sql, cache=None):
+    return rt.build_query_plan(rt.new_transaction(svc, query_cache=cache), sql)
+
+d = tempfile.mkdtemp()
+svc = DurableTableService(d, arena_flush_rows=50)
+q(svc, "CREATE TABLE t (id uint64, k string, v uint64, PRIMARY KEY (id));").execute(0)
+q(svc, "CREATE TABLE n (id uint64, tags REPEATED string, PRIMARY KEY (id));").execute(0)
+for i in range(120):
+    svc.insert_json("t", json.dumps({"id": i % 100, "k": "k%d" % (i % 3), "v": i}))
+    svc.insert_json("n", json.dumps({"id": i, "tags": ["a", "b"][: i % 3]}))
+svc.commit_all()
+svc = DurableTableService(d)
+latest = {i % 100: i for i in range(120)}  # the newest write of each id wins
+assert q(svc, "select k, count(1), sum(v) from t group by k order by k;").execute(0).rows == [
+    ["k%d" % g, str(sum(1 for v in latest.values() if v % 3 == g)),
+     str(sum(v for v in latest.values() if v % 3 == g))] for g in range(3)]
+assert device_exec.FUSED_GROUPBY_COUNT == 1
+assert q(svc, "select count(tags) from n;").execute(0).rows == [["120"]]
+stream = q(svc, "select id from t where v >= 115;").execute_stream(0)
+assert [r[0] for r in stream.rows] == ["15", "16", "17", "18", "19"]
+svc.tables["t"].compact()
+seg = [f for f in os.listdir(os.path.join(d, "t")) if f.endswith(".cst")][0]
+provider = CSTableScanProvider("t", os.path.join(d, "t", seg))
+cache = QueryCache(os.path.join(d, "qcache"))
+sql = "select k, count(1) from t group by k;"
+assert q(provider, sql, cache).execute(0).rows == q(provider, sql, cache).execute(0).rows
+assert device_exec.FUSED_GROUPBY_COUNT == 2 and len(os.listdir(cache.cache_dir)) == 1
+bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+       or m == "jaxlib" or m == "eventql_tpu" or m.startswith("eventql_tpu.")]
+assert not bad, bad
+print("STORAGE-ISOLATED-OK")
+"""
+
+
+def test_storage_modules_run_without_jax():
+    """The storage tier's modules import and serve (a stored table written,
+    reopened, grouped on the route, a nested count, a stream, a
+    compaction, a query cache hit) with neither jax nor eventql_tpu
+    loaded."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run(
+        [sys.executable, "-c", f"MODULES = {_STORAGE_MODULES!r}\n" + _STORAGE_PROGRAM],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "STORAGE-ISOLATED-OK" in out.stdout
+
+
 def _free_port() -> int:
     s = socket.socket()
     s.bind(("127.0.0.1", 0))

@@ -264,9 +264,9 @@ def test_zero_key_corner_is_answered_by_the_full_sort(monkeypatch):
     assert [r[0] for r in got[1][-3:]] == [str(np.iinfo(np.uint64).max)] * 3
 
 
-@pytest.mark.parametrize("seed", range(25))
-def test_scan_topk_fuzz_port_matches_jax_host_engine(seed):
-    """The generator of test_device_topk.test_fuzz_scan_topk_parity."""
+def _scan_topk_case(seed):
+    """The generator of test_device_topk.test_fuzz_scan_topk_parity:
+    (provider, query)."""
     keys = ["u", "i", "f", "s", "b"]
     wheres = ["u < 30", "i >= 0", "f > 0.0", "u % 3 = 1"]
     rng = random.Random(4000 + seed)
@@ -284,7 +284,13 @@ def test_scan_topk_fuzz_port_matches_jax_host_engine(seed):
         q += f" limit {rng.choice([1, 3, 17, 400])}"
         if rng.random() < 0.3:
             q += f" offset {rng.choice([1, 5, 50])}"
-    q += ";"
+    return provider, q + ";"
+
+
+@pytest.mark.parametrize("seed", range(25))
+def test_scan_topk_fuzz_port_matches_jax_host_engine(seed):
+    """The generator of test_device_topk.test_fuzz_scan_topk_parity."""
+    provider, q = _scan_topk_case(seed)
     want = jax_topk._run(provider, q, device=False)
     got, taken = _run_port(_hand_over(provider), q)
     assert got == want, f"query={q!r}"
