@@ -100,6 +100,27 @@ Phases (any mismatch or exception ends the run with a non-zero code):
      device="cuda"): every ResultList equal (tolerance 0), the CPU tests'
      floors on the route counters met; integer modulo by zero raises on
      each.
+ 10. serving: phase 4's table (``cat`` stored shifted, as in phase 8) in an
+     in-memory TableService behind EventQLServer + NativeTCPServer on one
+     sniffed port (server/listener.py), every route on the card: phase 4's
+     queries over the native protocol, the headline, G1, a top-k and J1
+     also over HTTP, each answer equal to numpy (tolerance 0), its route
+     counter rising once a run, each path's launch counts set to 0 just
+     before it and read just after; warm ms per query and protocol (host
+     clock, median of 3) beside phase 4's in-process time, and the answer's
+     bytes on the wire; 8 clients at once (native and HTTP), 3 rounds, every
+     answer exact; then a coordinator EventQLServer over ClusterTableProvider
+     of two NativeTCPServers (mesh_shards=2, half of the table each: phase
+     6's four shards) through HTTP: GROUP BYs whose partials the workers
+     aggregate on their meshes (at most 64 bytes a group and worker beyond
+     the query's fixed envelope) and a top-k pushed to them, each equal to
+     numpy, the workers' mesh counters rising; and a JOIN the fan-out
+     refuses over two workers of 2^20 rows of its own, made without
+     mesh_shards, which the coordinator's join route serves from the pulled
+     rows; then the headline and G1 over those two workers, whose partials
+     run on a mesh of one shard of the card. Each kernel's
+     first call on the serving and on the cluster paths is held against
+     its plain version.
 
 With EVQL_PARENT_JOIN_CU naming an earlier join.cu whose
 evql_dim_join_gid has this one's C interface (the argument types
@@ -107,7 +128,7 @@ kernels/join.py gives it), phase 2 builds it too and phase 5 holds its
 small-table probe against this one and times it on the same inputs.
 
 Prints a JSON line {"mesh": ...}, one {"multihost": ...}, one {"storage": ...}, one
-{"fuzz": ...}, one {"kernels": [...]} and, as the last line,
+{"fuzz": ...}, one {"serving": ...}, one {"kernels": [...]} and, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -122,7 +143,9 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 import weakref
 
 import numpy as np
@@ -132,6 +155,7 @@ from eventql_tpu_torch.columnar import native
 from eventql_tpu_torch.columnar.providers import CSTableScanProvider
 from eventql_tpu_torch.core.types import SType
 from eventql_tpu_torch.db.lsm import DurableTableService
+from eventql_tpu_torch.db.table_service import TableService
 from eventql_tpu_torch.exec import device_exec, mesh_exec
 from eventql_tpu_torch.exec.query_cache import QueryCache
 from eventql_tpu_torch.exec.relation import Column, Relation, dtype_for, relation_from_numpy
@@ -146,8 +170,12 @@ from eventql_tpu_torch.kernels import groupby_agg as ga
 from eventql_tpu_torch.kernels import hash_groupby as hg
 from eventql_tpu_torch.kernels import join as kj
 from eventql_tpu_torch.kernels import sort as ksort
-from eventql_tpu_torch.parallel import distributed, multihost
+from eventql_tpu_torch.parallel import cluster, distributed, multihost
+from eventql_tpu_torch.parallel.cluster import ClusterTableProvider
 from eventql_tpu_torch.parallel.mesh_provider import MeshTableProvider
+from eventql_tpu_torch.server.http_api import EventQLServer
+from eventql_tpu_torch.server.listener import Listener
+from eventql_tpu_torch.server.native_tcp import NativeTCPClient, NativeTCPServer
 
 # published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
 # the float32 rate outside the tensor cores, taken as the rate of the
@@ -1527,9 +1555,9 @@ def phase_main_path(device, n, n_prefix, reps):
         calls={**{q: [c] for q, c in g_calls.items()}, **h_calls, **o_calls, **j_calls},
         resident=resident,
         peak_general=peak,
-        # what phase 6 runs again over the mesh
+        # what phases 6 and 10 run again (over the mesh, over the wire)
         tables=dict(full=full, rt=rt, gqs=gqs, hqs=hqs, oqs=oqs, jqs=jqs, cols=cols,
-                    dictionary=dictionary),
+                    dictionary=dictionary, dims=dims),
     )
 
 
@@ -3563,6 +3591,426 @@ def phase_fuzz(device):
     return dict(corpora=out, launches=launches, seconds=time.perf_counter() - t0)
 
 
+# -- phase 10: serving ----------------------------------------------------------------
+#
+# Phase 4's table served as users reach it: an in-memory TableService
+# behind the port's EventQLServer + NativeTCPServer on one sniffed port
+# (server/listener.py), every route on the card, phase 4's queries over the
+# native protocol and some over HTTP, then eight clients at once; then a
+# coordinator (parallel/cluster.py) over two worker servers, each holding
+# half of the table on a mesh of CLUSTER_MESH_SHARDS shards (phase 6's four
+# shards in all), through HTTP: the partial aggregates (QUERY_PARTIALAGGR)
+# and a top-k pushdown (QUERY_REMOTE) on the workers' meshes, and a JOIN the
+# fan-out refuses over two small workers of its own (the coordinator pulls
+# their rows and runs its own routes); those two workers have no
+# mesh_shards, so their partial aggregates run on a mesh of one shard of
+# the card. The table service's schema has no signed type, so ``cat`` is
+# stored shifted, as in phase 8.
+
+SERVING_REPS = 3  # warm runs of a query over a protocol (host clock, median)
+SERVING_HTTP = ("headline", "G1_min_max_mean", "topk_ts_desc", J1[0])
+SERVING_CONCURRENT = ("headline", "G1_min_max_mean", "topk_ts_desc")
+SERVING_CLIENTS = 8  # half over the native protocol, half over HTTP
+SERVING_ROUNDS = 3
+CLUSTER_WORKERS = 2
+CLUSTER_MESH_SHARDS = 2
+CLUSTER_QUERIES = ("headline", "G1_min_max_mean", "G5_float_sums", "topk_ts_desc")
+CLUSTER_JOIN_ROWS = 1 << 20  # a worker of the remote-scan fallback
+CLUSTER_JOIN = "join_small_dim"
+CLUSTER_ONE_SHARD = ("headline", "G1_min_max_mean")  # over the JOIN's workers
+PARTIAL_BYTES_A_GROUP = 64  # a worker's partial, beyond its query's envelope
+# the envelope: the bytes of a worker's partial of the query with no group
+# (np.savez_compressed of its zero-length arrays), as phase 10 measured it
+# on an H100 80GB HBM3, plus 256 bytes
+PARTIAL_ENVELOPE = {"headline": 9037 + 256, "G1_min_max_mean": 10831 + 256,
+                    "G5_float_sums": 5089 + 256}
+DIM_COLUMNS = [("k", SType.UINT64), ("region", SType.STRING)]
+PATH_KERNELS = {
+    "group_by": ("groupby_agg", "groupby_multi_agg"),
+    "general_group_by": ("hash_groupby",),
+    "order_by": ("groupby_agg", "extract_ge"),
+    "join": ("dim_join_gid", "probe_join_gid", "groupby_agg", "groupby_multi_agg",
+             "hash_groupby"),
+}
+
+
+def serving_service(stored, dictionary, dims, lo, hi, dim_part=(0, 1)):
+    """An in-memory TableService holding rows [lo, hi) of phase 4's table
+    (``stored``: its columns as ``stored_columns`` gives them) as one
+    batch, and part ``i`` of ``parts`` of each dimension table
+    (``dim_part`` = (i, parts))."""
+    svc = TableService()
+    host = Runtime(device=None)
+    txn = host.new_transaction(svc)
+    for name, columns in (("t", COLUMNS), ("d1", DIM_COLUMNS), ("d2", DIM_COLUMNS)):
+        host.build_query_plan(txn, _create_sql(name, columns)).execute(0)
+    svc.tables["t"].insert_batch(_batch(COLUMNS, stored, lo, hi, {"k": dictionary}))
+    regions = np.array([b"r%04d" % i for i in range(N_REGIONS)], dtype=object)
+    i, parts = dim_part
+    for (name, (ordinal, region)), mult in zip(dims.items(), (DIM_MULT, BIG_DIM_MULT)):
+        d = {"k": ordinal.astype(np.uint64) * mult + 3, "region": region.astype(np.int32)}
+        a, b = i * len(ordinal) // parts, (i + 1) * len(ordinal) // parts
+        svc.tables[name].insert_batch(_batch(DIM_COLUMNS, d, a, b, {"region": regions}))
+    return svc
+
+
+class _CountedSocket:
+    """A client's socket that counts the bytes it receives."""
+
+    def __init__(self, sock):
+        self.sock, self.received = sock, 0
+
+    def recv(self, n, *flags):
+        data = self.sock.recv(n, *flags)
+        self.received += len(data)
+        return data
+
+    def __getattr__(self, name):
+        return getattr(self.sock, name)
+
+
+def native_client(port):
+    c = NativeTCPClient("127.0.0.1", port)
+    c.sock = _CountedSocket(c.sock)
+    return c
+
+
+def native_sql(client, sql):
+    """(rows, bytes received) of one statement over the native protocol."""
+    before = client.sock.received
+    ((_columns, rows),) = client.query(sql)
+    return rows, client.sock.received - before
+
+
+def http_sql(port, sql):
+    """(rows, bytes of the response body) of one statement over HTTP; an
+    error answer raises."""
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/api/v1/sql",
+                                 data=json.dumps({"query": sql}).encode())
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        body = resp.read()
+    return json.loads(body)["results"][0]["rows"], len(body)
+
+
+def _timed(fn):
+    t = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _same(rows, expected, as_set):
+    return (sorted(rows) if as_set else rows) == expected
+
+
+def serving_queries(tables, stored_cols, n):
+    """name -> (path, sql, expected rows, compared as a set?, route
+    counter) for phase 4's queries over the stored columns."""
+    dictionary = tables["dictionary"]
+    out = {}
+    for q in queries(stored_cols, dictionary, cat_lo=0):
+        out[q[0]] = ("group_by", q[1], q[4], True, _route_counter("group_by", q))
+    for name, sql, rows in general_queries(stored_cols, dictionary, n, cat_lo=0):
+        out[name] = ("general_group_by", sql, rows, False, "GENERAL_GROUPBY_COUNT")
+    for q in tables["oqs"]:
+        out[q[0]] = ("order_by", q[1], q[4], False, _route_counter("order_by", q))
+    for q in tables["jqs"]:
+        if q[3] is not None:
+            out[q[0]] = ("join", q[1], q[3], False, "JOIN_GROUPBY_COUNT")
+    return out
+
+
+def serving_standalone(port, qs, inprocess_e2e):
+    """Every query over the native protocol (a first run, then
+    SERVING_REPS warm runs), those of SERVING_HTTP also over HTTP, each
+    path's launch counts zeroed just before it and read just after.
+    Returns per-query numbers, the launches of each path and the first
+    call of each kernel."""
+    per_query, launches, first = {}, {}, {}
+    client = native_client(port)
+    for path, kernels in PATH_KERNELS.items():
+        zero_launch_counts()
+        with _RecordedCalls() as rec:
+            for name, (qpath, sql, expected, as_set, counter) in qs.items():
+                if qpath != path:
+                    continue
+                before = getattr(device_exec, counter)
+                (rows, nbytes), first_ms = _timed(lambda: native_sql(client, sql))
+                check(len(rows) == len(expected) and _same(rows, expected, as_set),
+                      f"phase 10: {name} over the native protocol differs from numpy")
+                for kernel, kw in rec.calls:
+                    first.setdefault(kernel, (name, kw))
+                rec.calls.clear()
+                runs, native_ms, http_ms = 1 + SERVING_REPS, [], []
+                for _ in range(SERVING_REPS):
+                    (again, _b), ms = _timed(lambda: native_sql(client, sql))
+                    rec.calls.clear()
+                    check(again == rows, f"phase 10: {name}: a warm native run differs")
+                    native_ms.append(ms)
+                entry = dict(rows=len(rows), first_ms=first_ms,
+                             native_ms=statistics.median(native_ms), native_bytes=nbytes,
+                             inprocess_ms=inprocess_e2e[name]["warm_ms_median"])
+                if name in SERVING_HTTP:
+                    for _ in range(SERVING_REPS):
+                        (hrows, hbytes), ms = _timed(lambda: http_sql(port, sql))
+                        rec.calls.clear()
+                        check(_same(hrows, expected, as_set),
+                              f"phase 10: {name} over HTTP differs from numpy")
+                        http_ms.append(ms)
+                    runs += SERVING_REPS
+                    entry.update(http_ms=statistics.median(http_ms), http_bytes=hbytes)
+                rose = getattr(device_exec, counter) - before
+                check(rose == runs, f"phase 10: {name}: {counter} rose {rose} in {runs} runs")
+                per_query[name] = entry
+                log(f"phase 10: {name}: native {entry['native_ms']:.3f} ms"
+                    + (f", HTTP {entry['http_ms']:.3f} ms" if http_ms else "")
+                    + f", in process {entry['inprocess_ms']:.3f} ms (host clock, median of"
+                    f" {SERVING_REPS}); {nbytes} bytes on the wire (native)")
+        launches[path] = launch_counts()
+        for k in kernels:
+            check(launches[path][k] > 0, f"phase 10: {k} not launched on the {path} path")
+    client.close()
+    return per_query, launches, first
+
+
+def serving_concurrency(port, qs):
+    """SERVING_CLIENTS clients (even ones native, odd ones HTTP), each
+    sending the SERVING_CONCURRENT queries in its own order, the rounds
+    started together: every answer equal to numpy."""
+    barrier = threading.Barrier(SERVING_CLIENTS)
+    errors, round_ms = [], [[] for _ in range(SERVING_CLIENTS)]
+
+    def client(i):
+        try:
+            c = native_client(port) if i % 2 == 0 else None
+            for r in range(SERVING_ROUNDS):
+                barrier.wait(timeout=600)
+                t = time.perf_counter()
+                for j in range(len(SERVING_CONCURRENT)):
+                    name = SERVING_CONCURRENT[(i + j) % len(SERVING_CONCURRENT)]
+                    _path, sql, expected, as_set, _counter = qs[name]
+                    rows = native_sql(c, sql)[0] if c else http_sql(port, sql)[0]
+                    if not _same(rows, expected, as_set):
+                        errors.append(f"client {i}, round {r}: {name} differs from numpy")
+                round_ms[i].append((time.perf_counter() - t) * 1e3)
+            if c:
+                c.close()
+        except Exception as e:  # reported by the main thread
+            errors.append(f"client {i}: {e!r}")
+            barrier.abort()
+
+    zero_launch_counts()
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(SERVING_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    check(not any(t.is_alive() for t in threads), "phase 10: a concurrent client hung")
+    check(not errors, f"phase 10: concurrent clients: {errors[:5]}")
+    launches = launch_counts()
+    per_round = [max(ms[r] for ms in round_ms) for r in range(SERVING_ROUNDS)]
+    log(f"phase 10: {SERVING_CLIENTS} clients x {SERVING_ROUNDS} rounds of"
+        f" {list(SERVING_CONCURRENT)} equal to numpy; slowest client a round"
+        f" {[round(x, 3) for x in per_round]} ms; launches {launches}")
+    return dict(clients=SERVING_CLIENTS, rounds=SERVING_ROUNDS, queries=SERVING_CONCURRENT,
+                round_ms_slowest_client=per_round, launches=launches)
+
+
+class _PartialBytes:
+    """While active, the coordinator's partial_from_bytes records, for
+    each worker partial it reads, (its bytes, its groups)."""
+
+    def __enter__(self):
+        self.seen = []
+        self._orig = orig = cluster.partial_from_bytes
+
+        def reading(data, template):
+            out = orig(data, template)
+            self.seen.append((len(data), out.n_groups))
+            return out
+
+        cluster.partial_from_bytes = reading
+        return self
+
+    def __exit__(self, *exc):
+        cluster.partial_from_bytes = self._orig
+
+
+def _coordinator(device, addrs):
+    return EventQLServer(TableService(), port=0, device=device,
+                         query_provider_factory=lambda: ClusterTableProvider(addrs)).start()
+
+
+def cluster_queries(port, qs, names):
+    """``names`` through HTTP to the coordinator on ``port``, with the
+    launch counts zeroed just before and read just after: answers equal
+    to numpy (a GROUP BY as a set: the merge orders groups by worker),
+    the workers' mesh counters rising once a worker and run, every
+    partial within PARTIAL_BYTES_A_GROUP bytes a group beyond its
+    query's PARTIAL_ENVELOPE. Returns per-query numbers, the launches
+    and the first call of each kernel."""
+    per_query, first = {}, {}
+    zero_launch_counts()
+    with _RecordedCalls() as rec, _PartialBytes() as pb:
+        for name in names:
+            path, sql, expected, _as_set, _counter = qs[name]
+            counter = "MESH_TOPK_RUNS" if path == "order_by" else "MESH_GROUPBY_RUNS"
+            before = getattr(mesh_exec, counter)
+            pb.seen.clear()
+            (rows, nbytes), first_ms = _timed(lambda: http_sql(port, sql))
+            ok = rows == expected if path == "order_by" else sorted(rows) == sorted(expected)
+            check(ok, f"phase 10: {name} through the cluster differs from numpy")
+            for kernel, kw in rec.calls:
+                first.setdefault(kernel, (name, kw))
+            rec.calls.clear()
+            partials = list(pb.seen)
+            if path != "order_by":
+                check(len(partials) == CLUSTER_WORKERS and all(
+                    size <= PARTIAL_BYTES_A_GROUP * groups + PARTIAL_ENVELOPE[name]
+                    for size, groups in partials),
+                    f"phase 10: {name}: partials (bytes, groups) {partials}, envelope"
+                    f" {PARTIAL_ENVELOPE[name]}")
+            times = []
+            for _ in range(SERVING_REPS):
+                (again, _b), ms = _timed(lambda: http_sql(port, sql))
+                rec.calls.clear()
+                check(again == rows, f"phase 10: {name}: a warm cluster run differs")
+                times.append(ms)
+            rose = getattr(mesh_exec, counter) - before
+            runs = 1 + SERVING_REPS
+            check(rose == CLUSTER_WORKERS * runs,
+                  f"phase 10: {name}: {counter} rose {rose}, expected {CLUSTER_WORKERS * runs}")
+            per_query[name] = dict(first_ms=first_ms, http_ms=statistics.median(times),
+                                   http_bytes=nbytes, rows=len(rows),
+                                   partials_bytes_groups=partials)
+            log(f"phase 10: cluster {name}: {per_query[name]['http_ms']:.3f} ms (host"
+                f" clock, median of {SERVING_REPS}; first {first_ms:.1f}); partials"
+                f" (bytes, groups) {partials}")
+    return per_query, launch_counts(), first
+
+
+def serving_cluster(device, tables, stored, n, qs):
+    """CLUSTER_QUERIES (cluster_queries) to a coordinator over
+    CLUSTER_WORKERS workers, each holding its share of the table on a mesh
+    of CLUSTER_MESH_SHARDS shards on the card."""
+    share = n // CLUSTER_WORKERS
+    workers = [NativeTCPServer(
+        serving_service(stored, tables["dictionary"], tables["dims"], i * share,
+                        (i + 1) * share, (i, CLUSTER_WORKERS)),
+        port=0, device=device, mesh_shards=CLUSTER_MESH_SHARDS).start()
+        for i in range(CLUSTER_WORKERS)]
+    coordinator = _coordinator(device, [("127.0.0.1", w.port) for w in workers])
+    try:
+        per_query, launches, first = cluster_queries(coordinator.port, qs, CLUSTER_QUERIES)
+        for k in ("hash_groupby", "groupby_agg", "extract_ge"):
+            check(launches[k] > 0, f"phase 10: {k} not launched on the cluster path")
+    finally:
+        coordinator.stop()
+        for w in workers:
+            w.stop()
+    return per_query, launches, first
+
+
+def serving_cluster_join(device, tables, stored):
+    """CLUSTER_JOIN through HTTP to a coordinator over two workers of
+    CLUSTER_JOIN_ROWS rows each (and half of d1 each), made without
+    mesh_shards: the fan-out refuses a JOIN, so the coordinator pulls the
+    workers' rows (QUERY_REMOTE) and runs its own join route on the card;
+    rows and their order equal numpy. Then CLUSTER_ONE_SHARD
+    (cluster_queries) over the same workers: their partials run on a mesh
+    of one shard of the card."""
+    n = CLUSTER_WORKERS * CLUSTER_JOIN_ROWS
+    cols, dims = tables["cols"], tables["dims"]
+    (name, sql, per_run, expected), = [q for q in join_queries(cols, dims, n)
+                                       if q[0] == CLUSTER_JOIN]
+    workers = [NativeTCPServer(
+        serving_service(stored, tables["dictionary"], dims, i * CLUSTER_JOIN_ROWS,
+                        (i + 1) * CLUSTER_JOIN_ROWS, (i, CLUSTER_WORKERS)),
+        port=0, device=device).start() for i in range(CLUSTER_WORKERS)]
+    coordinator = _coordinator(device, [("127.0.0.1", w.port) for w in workers])
+    try:
+        zero_launch_counts()
+        before = device_exec.JOIN_GROUPBY_COUNT
+        times, first = [], {}
+        with _RecordedCalls() as rec:
+            for _ in range(1 + SERVING_REPS):
+                (rows, nbytes), ms = _timed(lambda: http_sql(coordinator.port, sql))
+                check(rows == expected, f"phase 10: {name} through the cluster differs")
+                for kernel, kw in rec.calls:
+                    first.setdefault(kernel, (name, kw))
+                rec.calls.clear()
+                times.append(ms)
+        runs = 1 + SERVING_REPS
+        rose = device_exec.JOIN_GROUPBY_COUNT - before
+        check(rose == runs, f"phase 10: {name}: the coordinator's join route rose {rose}")
+        launches = launch_counts()
+        check(launches == {k: runs * per_run.get(k, 0) for k in launches},
+              f"phase 10: {name} launches {launches}, expected {per_run} a run")
+        pcols = {k: v[:n] for k, v in cols.items()}
+        pqs = serving_queries(dict(tables, oqs=[], jqs=[]),
+                              dict(pcols, cat=pcols["cat"] - CAT_LO), n)
+        one_shard, one_launches, one_first = cluster_queries(
+            coordinator.port, pqs, CLUSTER_ONE_SHARD)
+        check(one_launches["hash_groupby"] > 0,
+              "phase 10: hash_groupby not launched on the one-shard workers")
+        for k, call in one_first.items():
+            first.setdefault(k, call)
+    finally:
+        coordinator.stop()
+        for w in workers:
+            w.stop()
+    out = dict(rows_per_worker=CLUSTER_JOIN_ROWS, first_ms=times[0],
+               http_ms=statistics.median(times[1:]), http_bytes=nbytes, groups=len(rows))
+    log(f"phase 10: cluster {name} (remote-scan fallback, {n} rows pulled):"
+        f" {out['http_ms']:.1f} ms (host clock, median of {SERVING_REPS}; first"
+        f" {times[0]:.1f}); launches {launches}; one-shard workers: launches {one_launches}")
+    return out, launches, first, one_shard, one_launches
+
+
+def phase_serving(device, tables, inprocess_e2e):
+    """Phase 10 with every server's routes on ``device`` ("cuda"; "cpu"
+    runs the kernels' plain versions). Returns the {"serving": ...}
+    numbers and the first call of each kernel on the standalone and on
+    the cluster paths."""
+    t0 = time.perf_counter()
+    cols = tables["cols"]
+    n = len(cols["k"])
+    stored = stored_columns(cols)
+    qs = serving_queries(tables, dict(cols, cat=cols["cat"] - CAT_LO), n)
+    svc = serving_service(stored, tables["dictionary"], tables["dims"], 0, n)
+    http = EventQLServer(svc, device=device).start(bind=False)
+    native = NativeTCPServer(svc, device=device)  # its connection handler serves the listener
+    lis = Listener(http, native, port=0).start()
+    log(f"phase 10: {n} rows served on one port (native + HTTP), answers made in"
+        f" {time.perf_counter() - t0:.1f} s")
+    try:
+        per_query, launches, first = serving_standalone(lis.port, qs, inprocess_e2e)
+        concurrency = serving_concurrency(lis.port, qs)
+    finally:
+        lis.stop()
+        http.stop()
+    del svc, http, native
+    cluster_q, cluster_launches, cluster_first = serving_cluster(device, tables, stored, n, qs)
+    join, join_launches, join_first, one_shard, one_launches = serving_cluster_join(
+        device, tables, stored)
+    for k, call in join_first.items():
+        cluster_first.setdefault(k, call)
+    launches["concurrent"] = concurrency.pop("launches")
+    launches["cluster"] = cluster_launches
+    launches["cluster_join"] = join_launches
+    launches["cluster_one_shard"] = one_launches
+    out = dict(rows=n, reps=SERVING_REPS, queries=per_query, concurrency=concurrency,
+               cluster=dict(workers=CLUSTER_WORKERS, mesh_shards=CLUSTER_MESH_SHARDS,
+                            rows_per_worker=n // CLUSTER_WORKERS, queries=cluster_q,
+                            join_fallback=join,
+                            one_shard=dict(rows_per_worker=CLUSTER_JOIN_ROWS,
+                                           queries=one_shard)),
+               launches=launches, phase_s=time.perf_counter() - t0)
+    log(f"phase 10: {len(per_query)} queries served and"
+        f" {len(cluster_q) + 1 + len(one_shard)} through the"
+        f" cluster, equal to numpy, in {out['phase_s']:.1f} s")
+    return out, first, cluster_first
+
+
 _REPLACES = {
     "hash_groupby": ("eventql_tpu_torch/kernels/csrc/hash_groupby.cu",
                      "eventql_tpu/kernels/groupby.py:246 (not a TPU kernel:"
@@ -3615,13 +4063,22 @@ def main():
     times = phase_times(device, run["calls"], parent)
     context = _topk_context(device, run["calls"])
     del run["calls"]
-    mesh_run = phase_mesh(device, run.pop("tables"), MESH_REPS)
+    tables = run.pop("tables")
+    mesh_run = phase_mesh(device, tables, MESH_REPS)
+    # what phase 10 serves again: the table's columns and the answers
+    serving_tables = {k: tables[k] for k in ("cols", "dictionary", "dims", "oqs", "jqs")}
+    del tables
     shard_shapes = mesh_shapes(mesh_run.pop("first_calls"))
     multi = phase_multihost(mesh_run["kernel_tier"])
     multi_launches = multi["backends"]["gloo"]["launches"]
     storage, storage_launches, storage_first = phase_storage(device)
     storage_shapes = mesh_shapes(storage_first, "phase 8", "stored")
     fuzz = phase_fuzz(device)
+    serving, serving_first, cluster_first = phase_serving("cuda", serving_tables, run["e2e"])
+    del serving_tables
+    serving_shapes = mesh_shapes(serving_first, "phase 10", "serving")
+    cluster_shapes = mesh_shapes(cluster_first, "phase 10", "cluster")
+    del serving_first, cluster_first
     kernels = []
     for name, t in times.items():
         source, replaces, entry = _REPLACES[name]
@@ -3630,6 +4087,7 @@ def main():
         launches_by_path["mesh"] = mesh_run["launches"][name]
         launches_by_path["multihost"] = multi_launches[name]
         launches_by_path["storage"] = sum(c[name] for c in storage_launches.values())
+        launches_by_path["serving"] = sum(c[name] for c in serving["launches"].values())
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -3650,6 +4108,8 @@ def main():
             "other_shapes": t["other_shapes"],
             "mesh_shape": shard_shapes.get(name),
             "storage_shape": storage_shapes.get(name),
+            "serving_shape": serving_shapes.get(name),
+            "cluster_shape": cluster_shapes.get(name),
         })
         # probe_join_gid: its table-build kernels alone; dim_join_gid: one
         # row (its table build) and the earlier kernel; hash_groupby: its
@@ -3671,6 +4131,7 @@ def main():
     log(json.dumps({"multihost": multi}))
     log(json.dumps({"storage": storage}))
     log(json.dumps({"fuzz": fuzz}))
+    log(json.dumps({"serving": serving}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -21,43 +21,12 @@ import hashlib
 from dataclasses import dataclass, field
 from typing import List, Tuple
 
-
-# The native protocol's varint and length-encoded string codecs: a copy
-# of the four in eventql_tpu/server/native_tcp.py, whose port (the server
-# tier) is not written yet; they move back there with it.
-
-
-def write_varint(v: int) -> bytes:
-    out = bytearray()
-    while True:
-        b = v & 0x7F
-        v >>= 7
-        if v:
-            out.append(b | 0x80)
-        else:
-            out.append(b)
-            return bytes(out)
-
-
-def read_varint(buf: bytes, pos: int) -> Tuple[int, int]:
-    v = 0
-    shift = 0
-    while True:
-        b = buf[pos]
-        pos += 1
-        v |= (b & 0x7F) << shift
-        shift += 7
-        if not b & 0x80:
-            return v, pos
-
-
-def write_lenencstr(s: bytes) -> bytes:
-    return write_varint(len(s)) + s
-
-
-def read_lenencstr(buf: bytes, pos: int) -> Tuple[bytes, int]:
-    n, pos = read_varint(buf, pos)
-    return buf[pos : pos + n], pos + n
+from eventql_tpu_torch.server.native_tcp import (
+    read_lenencstr,
+    read_varint,
+    write_lenencstr,
+    write_varint,
+)
 
 
 @dataclass

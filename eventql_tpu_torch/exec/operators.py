@@ -14,10 +14,12 @@ same over a table sharded on a mesh) and serves every plan the routes
 decline. A partitioned provider (parallel/partitioned.py) merges host
 partials per partition, the query cache (exec/query_cache.py) answers a
 repeated GROUP BY over an immutable table file before any route, and
-nested or WITHIN RECORD scans go through columnar/nested_scan.py.
-DRAW charts are not ported yet and raise RuntimeError_ naming what is
-missing instead of being silently skipped; the cluster provider
-(parallel/cluster.py) has no counterpart yet.
+nested or WITHIN RECORD scans go through columnar/nested_scan.py. A
+cluster provider (parallel/cluster.py) ships a GROUP BY's partial plan
+and an ORDER BY ... LIMIT to its worker servers before any other route,
+and pulls the rows of every other plan from them. DRAW charts are not
+ported yet and raise RuntimeError_ naming what is missing instead of
+being silently skipped.
 """
 
 from __future__ import annotations
@@ -801,6 +803,16 @@ def _exec_group_by_impl(node: qn.GroupByNode, txn) -> Relation:
         if result is not None:
             return result
 
+    from eventql_tpu_torch.parallel.cluster import ClusterTableProvider
+
+    if isinstance(txn.tables, ClusterTableProvider):
+        # cross-process fan-out: ship the partial plan to every worker
+        # (QUERY_PARTIALAGGR) and merge; None -> shape not distributable,
+        # the routes below run on the rows pulled from the workers
+        result = txn.tables.execute_partial_aggregate(node)
+        if result is not None:
+            return result
+
     if _on_mesh(txn):
         # the mesh tier: per-shard partial aggregation and an exchange of
         # accumulator tables (exec/mesh_exec.py); None -> shape not
@@ -977,6 +989,16 @@ def _order_relation(child: Relation, sort_specs) -> Relation:
 
 
 def _exec_limit(node: qn.LimitNode, txn) -> Relation:
+    # cluster tier: push LIMIT [+ ORDER BY] to the workers — each
+    # returns its top offset+limit candidates, the coordinator re-sorts
+    # the merged candidates and slices (the distributed top-k)
+    from eventql_tpu_torch.parallel.cluster import ClusterTableProvider
+
+    if isinstance(txn.tables, ClusterTableProvider):
+        result = txn.tables.execute_pushdown_limit(node)
+        if result is not None:
+            return result
+
     if _on_mesh(txn) and isinstance(node.table, qn.OrderByNode):
         # the mesh top-k: O(k) candidates a shard; None -> not routable
         from eventql_tpu_torch.exec.mesh_exec import try_execute_mesh_scan_topk

@@ -656,3 +656,150 @@ def test_nested_plans_take_no_route_on_the_card(cuda_device, tmp_path):
         got = chip_smoke.run_query(Runtime(device=cuda_device), svc, sql).rows
         assert sum(chip_smoke.launch_counts().values()) == before, sql
         assert got == chip_smoke.run_query(host, svc, sql).rows, sql
+
+
+def _serving_setup(n, seed):
+    import chip_smoke
+
+    cols, dictionary = chip_smoke.make_table(n, seed=seed)
+    dims = chip_smoke.make_dims(seed=seed + 1)
+    tables = dict(cols=cols, dictionary=dictionary, dims=dims,
+                  oqs=chip_smoke.order_queries(cols, dictionary, n),
+                  jqs=chip_smoke.join_queries(cols, dims, n))
+    qs = chip_smoke.serving_queries(tables, dict(cols, cat=cols["cat"] - chip_smoke.CAT_LO), n)
+    return tables, chip_smoke.stored_columns(cols), qs
+
+
+def test_native_server_on_the_card_equals_the_cpu_server(cuda_device):
+    """A NativeTCPServer(device="cuda") over a 2^20-row table answers the
+    headline GROUP BY, G1, a top-k and a join as the same server on
+    device="cpu" does, both equal to numpy; the card's routes served it."""
+    import chip_smoke
+    from eventql_tpu_torch.server.native_tcp import NativeTCPServer
+
+    n = 1 << 20
+    tables, stored, qs = _serving_setup(n, seed=31)
+    svc = chip_smoke.serving_service(stored, tables["dictionary"], tables["dims"], 0, n)
+    answers = {}
+    for device in ("cuda", "cpu"):
+        server = NativeTCPServer(svc, port=0, device=device).start()
+        try:
+            client = chip_smoke.native_client(server.port)
+            before = chip_smoke.launch_counts()
+            for name in ("headline", "G1_min_max_mean", "topk_ts_desc", "join_small_dim"):
+                _path, sql, expected, as_set, _counter = qs[name]
+                rows, _nbytes = chip_smoke.native_sql(client, sql)
+                assert chip_smoke._same(rows, expected, as_set), (device, name)
+                answers.setdefault(name, []).append(rows)
+            launched = {k: v - before[k] for k, v in chip_smoke.launch_counts().items()}
+            client.close()
+        finally:
+            server.stop()
+        if device == "cuda":
+            assert all(launched[k] > 0 for k in ("groupby_agg", "hash_groupby",
+                                                 "dim_join_gid")), launched
+    assert all(a[0] == a[1] for a in answers.values())
+
+
+@pytest.mark.parametrize("mesh_shards", [2, None])
+def test_two_worker_cluster_on_the_card_equals_the_in_process_route(cuda_device, mesh_shards):
+    """Two workers on the card (with mesh_shards=2, and without: a mesh of
+    one shard), each half of a 2^20-row table, behind a coordinator: the
+    headline GROUP BY, G1, G5 and a top-k equal Runtime(device="cuda")
+    over the whole table, the workers' partial aggregates and top-k on
+    their meshes, launching the card's kernels."""
+    import chip_smoke
+    from eventql_tpu_torch.exec import mesh_exec
+    from eventql_tpu_torch.exec.runtime import Runtime
+    from eventql_tpu_torch.parallel.cluster import ClusterTableProvider
+    from eventql_tpu_torch.server.native_tcp import NativeTCPServer
+
+    n = 1 << 20
+    tables, stored, qs = _serving_setup(n, seed=33)
+    whole = chip_smoke.serving_service(stored, tables["dictionary"], tables["dims"], 0, n)
+    workers = [NativeTCPServer(
+        chip_smoke.serving_service(stored, tables["dictionary"], tables["dims"],
+                                   i * n // 2, (i + 1) * n // 2, (i, 2)),
+        port=0, device="cuda", mesh_shards=mesh_shards).start() for i in range(2)]
+    try:
+        provider = ClusterTableProvider([("127.0.0.1", w.port) for w in workers])
+        rt = Runtime(device="cuda")
+        for name in ("headline", "G1_min_max_mean", "G5_float_sums", "topk_ts_desc"):
+            path, sql, expected, _as_set, _counter = qs[name]
+            before = mesh_exec.MESH_GROUPBY_RUNS + mesh_exec.MESH_TOPK_RUNS
+            launches = chip_smoke.launch_counts()
+            got = chip_smoke.run_query(rt, provider, sql).rows
+            assert mesh_exec.MESH_GROUPBY_RUNS + mesh_exec.MESH_TOPK_RUNS == before + 2, name
+            launched = {k: v - launches[k] for k, v in chip_smoke.launch_counts().items()}
+            if path != "order_by":  # the workers' partials: H1 on each mesh
+                assert launched["hash_groupby"] > 0, (name, launched)
+            want = chip_smoke.run_query(rt, whole, sql).rows
+            if path == "order_by":
+                assert got == want == expected, name
+            else:
+                assert sorted(got) == sorted(want) == sorted(expected), name
+    finally:
+        for w in workers:
+            w.stop()
+
+
+_CONCURRENT_FIRST = r"""
+import sys, threading
+sys.path.insert(0, ".")
+import chip_smoke
+from eventql_tpu_torch.server.native_tcp import NativeTCPServer
+
+n = 1 << 22  # a top-k takes the histograms and the extraction from here on
+cols, dictionary = chip_smoke.make_table(n, seed=35)
+dims = chip_smoke.make_dims(seed=36)
+tables = dict(cols=cols, dictionary=dictionary, dims=dims,
+              oqs=chip_smoke.order_queries(cols, dictionary, n),
+              jqs=chip_smoke.join_queries(cols, dims, n))
+qs = chip_smoke.serving_queries(tables, dict(cols, cat=cols["cat"] - chip_smoke.CAT_LO), n)
+svc = chip_smoke.serving_service(chip_smoke.stored_columns(cols), dictionary, dims, 0, n)
+server = NativeTCPServer(svc, port=0, device="cuda").start()
+names = ["headline", "G1_min_max_mean", "topk_ts_desc", "join_small_dim", "join_big_dim",
+         "multi_sum", "G4_count_distinct", "order_ts_where"]
+errors = []
+start = threading.Barrier(8)
+
+def client(i):
+    try:
+        c = chip_smoke.native_client(server.port)
+        start.wait(timeout=120)
+        for j in range(len(names)):
+            name = names[(i + j) % len(names)]
+            _path, sql, expected, as_set, _counter = qs[name]
+            if not chip_smoke._same(chip_smoke.native_sql(c, sql)[0], expected, as_set):
+                errors.append((i, name))
+        c.close()
+    except Exception as e:
+        errors.append((i, repr(e)))
+
+threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join(timeout=600)
+server.stop()
+assert not any(t.is_alive() for t in threads) and not errors, errors
+launched = chip_smoke.launch_counts()
+assert all(launched[k] > 0 for k in launched), launched
+print("CONCURRENT-FIRST-OK")
+"""
+
+
+def test_concurrent_first_queries_on_the_card(cuda_device):
+    """A fresh process: eight clients send their first queries at once to
+    a server on the card, before any kernel library is loaded or any
+    column uploaded (the build lock, the libraries' first setup, the
+    column cache and the counters all raced): every answer equals numpy,
+    and every kernel was launched."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", _CONCURRENT_FIRST], cwd=repo,
+                         capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
+    assert "CONCURRENT-FIRST-OK" in out.stdout

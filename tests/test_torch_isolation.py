@@ -273,6 +273,102 @@ def test_storage_modules_run_without_jax():
     assert "STORAGE-ISOLATED-OK" in out.stdout
 
 
+_SERVING_MODULES = [
+    "plan.qtree_coder", "plan.coder", "db.metadata", "server.auth", "server.native_tcp",
+    "server.http_api", "server.listener", "parallel.conn_pool", "parallel.cluster",
+    "cli.evqld", "cli.console",
+]
+
+_SERVING_PROGRAM = r"""
+import importlib, json, sys, urllib.request
+for name in MODULES:
+    importlib.import_module("eventql_tpu_torch." + name)
+from eventql_tpu_torch.core.errors import RuntimeError_
+from eventql_tpu_torch.db.table_service import TableService
+from eventql_tpu_torch.exec import device_exec, mesh_exec
+from eventql_tpu_torch.parallel.cluster import ClusterTableProvider
+from eventql_tpu_torch.server.http_api import EventQLServer
+from eventql_tpu_torch.server.listener import Listener
+from eventql_tpu_torch.server.native_tcp import NativeTCPClient, NativeTCPServer
+
+def http(port, query):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}/api/v1/sql",
+                                 data=json.dumps({"query": query}).encode())
+    return json.loads(urllib.request.urlopen(req, timeout=30).read())["results"][0]["rows"]
+
+rows = ['{"t": %d, "k": "k%d", "v": %d}' % (i, i % 3, i) for i in range(90)]
+want = [["k%d" % g, str(sum(range(g, 90, 3)))] for g in range(3)]
+sql = "select k, sum(v) from ev group by k order by k;"
+svc = TableService()
+http_server = EventQLServer(svc, device="cpu").start(bind=False)
+native = NativeTCPServer(svc, device="cpu")
+lis = Listener(http_server, native, port=0).start()
+c = NativeTCPClient("127.0.0.1", lis.port)
+c.query("CREATE TABLE ev (t uint64, k string, v uint64, PRIMARY KEY (t));")
+c.insert_json("ev", rows)
+assert c.query(sql)[0][1] == want and http(lis.port, sql) == want
+c.close()
+assert device_exec.FUSED_GROUPBY_COUNT == 2
+lis.stop()
+http_server.stop()
+
+workers = []
+for part in (rows[:45], rows[45:]):
+    w = NativeTCPServer(TableService(), port=0, device="cpu", mesh_shards=2).start()
+    c = NativeTCPClient("127.0.0.1", w.port)
+    c.query("CREATE TABLE ev (t uint64, k string, v uint64, PRIMARY KEY (t));")
+    c.insert_json("ev", part)
+    c.close()
+    workers.append(w)
+addrs = [("127.0.0.1", w.port) for w in workers]
+coordinator = EventQLServer(port=0, device="cpu",
+                            query_provider_factory=lambda: ClusterTableProvider(addrs)).start()
+assert http(coordinator.port, sql) == want
+assert mesh_exec.MESH_GROUPBY_RUNS == 2
+coordinator.stop()
+for w in workers:
+    w.stop()
+
+for make in (lambda: NativeTCPServer(svc), lambda: EventQLServer(svc)):
+    try:
+        make()
+    except RuntimeError_ as e:
+        assert "CUDA" in str(e)
+    else:
+        raise AssertionError("a server on device='cuda' started without a GPU")
+bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+       or m == "jaxlib" or m == "eventql_tpu" or m.startswith("eventql_tpu.")]
+assert not bad, bad
+print("SERVING-ISOLATED-OK")
+"""
+
+
+def test_serving_modules_run_without_jax():
+    """The serving tier's modules import and serve (native protocol and
+    HTTP on one port, a coordinator over two workers that aggregate on
+    their meshes) with neither jax nor eventql_tpu loaded; a server left
+    on its default device raises without a card."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run(
+        [sys.executable, "-c", f"MODULES = {_SERVING_MODULES!r}\n" + _SERVING_PROGRAM],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "SERVING-ISOLATED-OK" in out.stdout
+
+
+def test_serving_modules_read_no_environment():
+    """The serving tier takes its device and its mesh as arguments: none
+    of its modules reads an environment variable."""
+    for name in _SERVING_MODULES:
+        path = os.path.join(REPO, "eventql_tpu_torch", *name.split(".")) + ".py"
+        with open(path, encoding="utf-8") as fh:
+            text = fh.read()
+        assert "environ" not in text and "getenv" not in text, path
+
+
 def _free_port() -> int:
     s = socket.socket()
     s.bind(("127.0.0.1", 0))

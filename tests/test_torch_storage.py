@@ -8,10 +8,12 @@ against its original; the same relations through both writers (the files
 byte for byte), both readers on one file, both shredders, both tablet
 indexes, both table services through the same statements (insert, upsert
 by primary key, commit, reopen, compact, garbage collection); the wire
-helpers the port keeps in db/shredded_record_list.py against
-server/native_tcp.py's; and SQL over a stored table under
-Runtime(device="cpu"), whose routes must serve it, against the JAX host
-engine.
+helpers db/shredded_record_list.py imports from the port's
+server/native_tcp.py against the JAX package's; and SQL over a stored
+table under Runtime(device="cpu"), whose routes must serve it, against
+the JAX host engine. The serving tier's copies (plan coders, servers,
+cluster fan-out, CLIs) are held to their originals here too, each
+deliberate difference listed by the region it lies in.
 """
 
 import importlib
@@ -69,15 +71,6 @@ def _sql(pkg, provider, query):
 
 # -- the copies' sources --------------------------------------------------------
 
-_WIRE_IMPORT = '''from eventql_tpu.server.native_tcp import (
-    read_lenencstr,
-    read_varint,
-    write_lenencstr,
-    write_varint,
-)
-'''
-
-
 def _source(root, mod):
     with open(os.path.join(REPO, root, *mod.split(".")) + ".py") as f:
         return f.read()
@@ -85,15 +78,92 @@ def _source(root, mod):
 
 @pytest.mark.parametrize("mod", MODULES)
 def test_copy_differs_from_its_original_only_in_its_imports(mod):
-    """Each module is the JAX package's file with `eventql_tpu` renamed;
-    db/shredded_record_list.py alone also holds its own copy of the four
-    wire helpers in place of the import from server/native_tcp.py."""
+    """Each module is the JAX package's file with `eventql_tpu` renamed."""
+    port = _source("eventql_tpu_torch", mod).replace("eventql_tpu_torch", "eventql_tpu")
+    assert port == _source("eventql_tpu", mod)
+
+
+# The serving tier's copies: module -> the regions where the copy differs
+# from its original on purpose, each from the text that opens it up to
+# the text that follows it (None: the end of the file), both found in the
+# copy and in the original with the port's name replaced. Outside them
+# the copy is the original.
+SERVING_COPIES = {
+    "plan.qtree_coder": [],
+    "db.metadata": [],
+    "server.auth": [],
+    "server.listener": [],
+    "parallel.conn_pool": [],
+    # encode_plan takes binary=True and reads no environment variable
+    "plan.coder": [("import json\n", "from eventql_tpu.core.errors"),
+                   ("def encode_plan(", "def decode_plan(")],
+    # the device and the mesh are arguments; the metadata ops answer as a
+    # server without a metadata service
+    "server.native_tcp": [
+        ("    def __init__(\n        self, table_service, host=", "    def start(self):"),
+        ("    def _mesh_provider_for(", "    def _handle_partialaggr("),
+        ("                # TCP-over-", "                partial = self._mesh_partial("),
+        ("    def _handle_meta(", "# -- client"),
+    ],
+    # the device is an argument; the mapreduce routes answer "not ported"
+    "server.http_api": [
+        ("  POST     /api/v1/mapreduce/", "  GET      /api/v1/auth/info"),
+        ("        client_auth=None,\n", "        # queries may run against"),
+        ("        self.runtime = Runtime(", "        self.stats = ServerStats()"),
+        ("                return self._handle_describe(h, params, payload)\n",
+         '            if path == "/api/v1/auth/info":'),
+        ('            w(b"event: query_error\\ndata: ")', "    @staticmethod\n    def _sse_begin"),
+        ("        return sse\n", "    def _alter_target(self):"),
+    ],
+    # the coordinator over an explicit worker list alone: the partition
+    # metadata tier (routed and replicated inserts, per-partition jobs,
+    # failover, the per-host cap, DESCRIBE PARTITIONS) and the config
+    # directory need config/ and db/metadata_{file,service,transport}.py
+    "parallel.cluster": [
+        ("import struct\n", "\n\n# -- partial serialization"),
+        ("class ClusterTableProvider(TableProvider):", "    def _query(self, addr"),
+        ("        return [self.describe(n) for n in sorted(names)]\n", "    def drop_table("),
+        ("    def insert_json(", "    def insert("),
+        ("    def get_table_chunks(", "    # -- distributed execution"),
+        ("def cluster_provider_from_config(", None),
+    ],
+    # --device / --mesh_shards; no --standalone; the cluster registry, its
+    # services and their flags refused by name; the query cache without a
+    # mapreduce cache
+    "cli.evqld": [
+        ('"""Server binary', "from __future__"),
+        ('    ap = argparse.ArgumentParser(prog="evqld"', '        "--statsd_addr"'),
+        ('    ap.add_argument(\n        "--partition_split_threshold_rows"',
+         "    host, _, port = args.listen_http"),
+        ("        statsd_agent = StatsdAgent(", "    client_auth = None"),
+        ("        client_auth = LegacyClientAuth(", "    # the primary port sniffs"),
+        ("    native = NativeTCPServer(", "    from eventql_tpu.server.listener import Listener"),
+        ("    server.port = listener.port", "    stop = []"),
+        ("        time.sleep(0.2)\n", "    if statsd_agent is not None:"),
+    ],
+    # --device for the embedded engine
+    "cli.console": [
+        ("class LocalBackend:", "class HTTPBackend:"),
+        ('    ap.add_argument("--output_file"', "    args = ap.parse_args(argv)"),
+        ("        else LocalBackend(", "    out_fh = open("),
+    ],
+}
+
+
+def _region(text, start, end):
+    a = text.index(start)
+    return a, len(text) if end is None else text.index(end, a + len(start))
+
+
+@pytest.mark.parametrize("mod", list(SERVING_COPIES))
+def test_serving_copy_differs_only_in_its_imports_and_listed_regions(mod):
     port = _source("eventql_tpu_torch", mod).replace("eventql_tpu_torch", "eventql_tpu")
     orig = _source("eventql_tpu", mod)
-    if mod == "db.shredded_record_list":
-        start = port.index("\n# The native protocol's varint")
-        end = port.index("\n\n@dataclass")
-        port = port[:start] + _WIRE_IMPORT + port[end:]
+    for start, end in SERVING_COPIES[mod]:
+        pa, pb = _region(port, start, end)
+        oa, ob = _region(orig, start, end)
+        assert port[pa:pb] != orig[oa:ob], f"{mod}: {start!r} no longer differs"
+        port = port[:pa] + orig[oa:ob] + port[pb:]
     assert port == orig
 
 
