@@ -121,6 +121,37 @@ Phases (any mismatch or exception ends the run with a non-zero code):
      run on a mesh of one shard of the card. Each kernel's
      first call on the serving and on the cluster paths is held against
      its plain version.
+ 11. charts and the cluster tier: (a) four DRAW statements over phase 4's
+     table under Runtime(device="cuda") (a BARCHART over the headline GROUP
+     BY, a LINECHART with LEGEND over an ORDER BY ... LIMIT, an AREACHART
+     with YDOMAIN over G1's grouping, a POINTCHART with GRID), each SVG byte
+     for byte the one the port's host engine renders for the same statement,
+     its route counter rising once a run, each chart's launch counts zeroed
+     just before it and read just after, each kernel's first call held
+     against its plain version; warm ms (host clock, median of 3) beside
+     phase 4's time for the bare query. (b) a cluster as its users deploy
+     it: the port's embedded ZooKeeper server in this process, replication
+     factor 2, three ``python -m eventql_tpu_torch.cli.evqld --zookeeper_addr
+     ... --server_name nodeN --device cuda --datadir ...
+     --partition_split_threshold_rows T`` processes; a table of phase 4's
+     columns plus a UINT64 primary key ``id`` created over HTTP; rows
+     inserted through node1's HTTP insert API (routed by partition, written
+     to every replica, majority acknowledgement), CLUSTER_TIER_ROWS of them
+     unless the routed rate would take more than CLUSTER_TIER_INSERT_S
+     (the cut is on the printed line); the leader's autosplit splits the
+     partition (DESCRIBE PARTITIONS shows more partitions than at
+     creation); within a deadline every replica the metadata names holds,
+     in its partition's keyrange, exactly numpy's rows; the headline GROUP
+     BY, G1, a top-k, count(*) and a DRAW through node1 and node2 equal to
+     numpy (tolerance 0); then the node a query of the last partition
+     reads first is SIGKILLed (node3 when the splits placed a partition on
+     it first, else node1 or node2: killing a node that serves no
+     partition first would test no failover): the registry and CLUSTER
+     SHOW SERVERS report it down, and the same queries stay exact through
+     a live node (failover to the other replica), with no failed shard on
+     an in-process coordinator. The partition plans are keyrange-scoped,
+     which every device route declines, so the nodes answer them on their
+     host engines. Every node process is killed on every exit path.
 
 With EVQL_PARENT_JOIN_CU naming an earlier join.cu whose
 evql_dim_join_gid has this one's C interface (the argument types
@@ -128,7 +159,12 @@ kernels/join.py gives it), phase 2 builds it too and phase 5 holds its
 small-table probe against this one and times it on the same inputs.
 
 Prints a JSON line {"mesh": ...}, one {"multihost": ...}, one {"storage": ...}, one
-{"fuzz": ...}, one {"serving": ...}, one {"kernels": [...]} and, as the last line,
+{"fuzz": ...}, one {"serving": ...}, one {"cluster": ...} (the card's name and power
+limit, phase 11's charts and their launches, and the cluster tier: nodes, rows
+inserted and any cut, routed inserts a second, partitions at creation and after
+the splits and their placements, the replica pairs read back, the node killed,
+ms per query before and after the kill, seconds to the nodes' start, the first
+split, the read-back, "down" and the first exact answer after the kill), one {"kernels": [...]} and, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -138,6 +174,7 @@ import json
 import os
 import random
 import re
+import shutil
 import socket
 import statistics
 import subprocess
@@ -153,8 +190,13 @@ import torch
 
 from eventql_tpu_torch.columnar import native
 from eventql_tpu_torch.columnar.providers import CSTableScanProvider
+from eventql_tpu_torch.config.config_directory import SERVER_DOWN, SERVER_UP, ConfigDirectory
+from eventql_tpu_torch.config.config_directory_zookeeper import reset_sessions
+from eventql_tpu_torch.config.zookeeper import ZooKeeperServer
+from eventql_tpu_torch.core.errors import RuntimeError_, SQLError
 from eventql_tpu_torch.core.types import SType
 from eventql_tpu_torch.db.lsm import DurableTableService
+from eventql_tpu_torch.db.metadata import TableMetadata
 from eventql_tpu_torch.db.table_service import TableService
 from eventql_tpu_torch.exec import device_exec, mesh_exec
 from eventql_tpu_torch.exec.query_cache import QueryCache
@@ -171,8 +213,15 @@ from eventql_tpu_torch.kernels import hash_groupby as hg
 from eventql_tpu_torch.kernels import join as kj
 from eventql_tpu_torch.kernels import sort as ksort
 from eventql_tpu_torch.parallel import cluster, distributed, multihost
-from eventql_tpu_torch.parallel.cluster import ClusterTableProvider
+from eventql_tpu_torch.parallel.cluster import (
+    ClusterTableProvider,
+    cluster_provider_from_config,
+    relation_from_bytes,
+)
 from eventql_tpu_torch.parallel.mesh_provider import MeshTableProvider
+from eventql_tpu_torch.plan import nodes as qn
+from eventql_tpu_torch.plan.coder import encode_plan
+from eventql_tpu_torch.plan.exprs import ColumnReferenceNode
 from eventql_tpu_torch.server.http_api import EventQLServer
 from eventql_tpu_torch.server.listener import Listener
 from eventql_tpu_torch.server.native_tcp import NativeTCPClient, NativeTCPServer
@@ -4011,6 +4060,458 @@ def phase_serving(device, tables, inprocess_e2e):
     return out, first, cluster_first
 
 
+# -- phase 11: charts on the card, and the cluster tier ---------------------------------
+#
+# (a) DRAW over phase 4's table under Runtime(device): four charts whose
+# sub-queries take the GROUP BY (B1), top-k (B1's histograms + B3) and
+# general GROUP BY (H1) routes, each SVG byte for byte the one the port's
+# host engine renders for the same statement (every sub-query orders its
+# rows, so both engines hand the chart the same rows in the same order).
+# (b) A cluster as EventQL's users deploy it: the port's embedded ZooKeeper
+# server in this process, a cluster of replication factor 2, three evqld
+# processes on the card (--zookeeper_addr, --server_name, --device,
+# --datadir, --partition_split_threshold_rows), a table partitioned on a
+# UINT64 primary key. Rows go in through node1's HTTP insert API, routed by
+# partition and written to every replica (majority acknowledgement); the
+# leader's autosplit splits the partition while they arrive. Then: every
+# replica's rows in each partition's keyrange against numpy, queries through
+# node1 and node2, the node a query of the last partition reads first
+# killed, the queries again through a live node. The
+# partition plans are keyrange-scoped, which every device route declines:
+# the workers answer them on their host engines, and the card runs (a).
+
+CHART_REPS = 3  # warm runs of a chart (host clock, median)
+CHARTS = {
+    # name: (kernels it launches, phase 4's query it draws, route counter,
+    # statement)
+    "bar_headline": (
+        ("groupby_agg",), "headline", "FUSED_GROUPBY_COUNT",
+        "DRAW BARCHART WITH AXIS BOTTOM AXIS LEFT;"
+        " SELECT k AS x, sum(v) AS y FROM t WHERE v < 800 GROUP BY k ORDER BY x;"),
+    "line_legend_topk": (
+        ("groupby_agg", "extract_ge"), "topk_ts_desc", "SCAN_TOPK_COUNT",
+        "DRAW LINECHART WITH LEGEND TOP RIGHT INSIDE AXIS LEFT;"
+        " SELECT ts AS x, v AS y FROM t ORDER BY ts DESC LIMIT 100;"),
+    "area_ydomain_g1": (
+        ("hash_groupby",), "G1_min_max_mean", "GENERAL_GROUPBY_COUNT",
+        "DRAW AREACHART WITH YDOMAIN 0, 1000 AXIS LEFT;"
+        " SELECT max(w) AS x, mean(v) AS y FROM t WHERE v < 800 GROUP BY k"
+        " ORDER BY x, k;"),
+    "point_grid": (
+        ("groupby_agg",), "numeric_key_base", "FUSED_GROUPBY_COUNT",
+        "DRAW POINTCHART WITH GRID HORIZONTAL VERTICAL AXIS BOTTOM;"
+        " SELECT cat AS x, count(1) AS y FROM t GROUP BY cat ORDER BY x;"),
+}
+
+
+def render(rt, provider, sql):
+    res = rt.build_query_plan(rt.new_transaction(provider), sql).execute(0)
+    check(res.columns == ["__chart"] and len(res.rows) == 1, "a DRAW gave no chart")
+    return res.rows[0][0]
+
+
+def phase_charts(device, cols, dictionary, inprocess_e2e):
+    """CHARTS under Runtime(device) against the host engine, each path's
+    launch counts zeroed just before it and read just after. Returns the
+    {"charts": ...} numbers, the launches by chart and each kernel's first
+    call."""
+    n = len(cols["k"])
+    provider = provider_of(cols, dictionary, n)
+    host, rt = Runtime(device=None), Runtime(device=device)
+    per_chart, launches, first = {}, {}, {}
+    for name, (kernels, bare, counter, sql) in CHARTS.items():
+        want, host_ms = _timed(lambda: render(host, provider, sql))
+        zero_launch_counts()
+        with _RecordedCalls() as rec:
+            before = getattr(device_exec, counter)
+            svg, first_ms = _timed(lambda: render(rt, provider, sql))
+            check(svg == want, f"phase 11: {name}: the SVG differs from the host engine's")
+            check(getattr(device_exec, counter) == before + 1,
+                  f"phase 11: {name}: {counter} did not rise by one")
+            for kernel, kw in rec.calls:
+                first.setdefault(kernel, (name, kw))
+            rec.calls.clear()
+            warm = []
+            for _ in range(CHART_REPS):
+                again, ms = _timed(lambda: render(rt, provider, sql))
+                rec.calls.clear()
+                check(again == want, f"phase 11: {name}: a warm run differs")
+                warm.append(ms)
+        launches[name] = launch_counts()
+        for k in kernels:
+            check(launches[name][k] > 0, f"phase 11: {k} not launched by {name}")
+        check(getattr(device_exec, counter) == before + 1 + CHART_REPS,
+              f"phase 11: {name}: {counter} did not rise once a run")
+        per_chart[name] = dict(svg_bytes=len(svg), first_ms=first_ms,
+                               warm_ms=statistics.median(warm), host_engine_ms=host_ms,
+                               bare_query=bare,
+                               bare_warm_ms=inprocess_e2e[bare]["warm_ms_median"])
+        log(f"phase 11: {name}: {len(svg)} bytes of SVG equal to the host engine's;"
+            f" {per_chart[name]['warm_ms']:.3f} ms warm (host clock, median of {CHART_REPS};"
+            f" first {first_ms:.1f}), the bare {bare} {per_chart[name]['bare_warm_ms']:.3f} ms,"
+            f" the host engine {host_ms:.1f} ms")
+    return dict(rows=n, reps=CHART_REPS, charts=per_chart), launches, first
+
+
+CLUSTER_TIER_NODES = ("node1", "node2", "node3")
+CLUSTER_TIER_RF = 2
+CLUSTER_TIER_ROWS = 1 << 16  # rows inserted, unless the routed rate forces a cut
+CLUSTER_TIER_SPLIT_ROWS = 1 << 12  # --partition_split_threshold_rows
+CLUSTER_TIER_BATCH = 256  # records in one POST /api/v1/tables/insert
+CLUSTER_TIER_INSERT_S = 90.0  # the inserts' budget: no request starts after it
+CLUSTER_TIER_START_S = 180.0  # a node that has not registered by then fails the phase
+CLUSTER_TIER_DEADLINE_S = 120.0  # for a split, the read-back, "down", the first exact answer
+CLUSTER_TIER_REPS = 3
+CLUSTER_TIER_NAME = "phase11"
+CLUSTER_TIER_QUERIES = ("headline", "G1_min_max_mean", "topk_ts_desc", "count_star",
+                        "draw_bar")
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+
+class _Nodes:
+    """evqld processes of the cluster; each one is killed on exit."""
+
+    def __init__(self, tmp):
+        self.tmp, self.procs, self.logs = tmp, {}, {}
+
+    def start(self, name, zk_addr, device):
+        log_path = os.path.join(self.tmp, f"{name}.log")
+        self.logs[name] = log_path
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        with open(log_path, "w") as out:
+            self.procs[name] = subprocess.Popen(
+                [sys.executable, "-m", "eventql_tpu_torch.cli.evqld",
+                 "--zookeeper_addr", zk_addr, "--server_name", name, "--device", device,
+                 "--datadir", os.path.join(self.tmp, name),
+                 "--partition_split_threshold_rows", str(CLUSTER_TIER_SPLIT_ROWS),
+                 "--listen_http", "127.0.0.1:0", "--listen_native", "127.0.0.1:0"],
+                stdout=out, stderr=subprocess.STDOUT, cwd=REPO, env=env)
+
+    def log_of(self, name):
+        with open(self.logs[name]) as f:
+            return f.read()
+
+    def wait_listening(self, name):
+        """The port the node serves HTTP and the native protocol on, once
+        it prints that it listens."""
+        deadline = time.monotonic() + CLUSTER_TIER_START_S
+        while time.monotonic() < deadline:
+            m = re.search(r"listening on http://127\.0\.0\.1:(\d+)", self.log_of(name))
+            if m:
+                return int(m.group(1))
+            check(self.procs[name].poll() is None,
+                  f"phase 11: {name} exited: {self.log_of(name)[-2000:]}")
+            time.sleep(0.2)
+        raise AssertionError(f"phase 11: {name} did not start: {self.log_of(name)[-2000:]}")
+
+    def kill(self, name):
+        p = self.procs[name]
+        p.kill()
+        p.wait(timeout=30)
+
+    def stop_all(self):
+        for p in self.procs.values():
+            if p.poll() is None:
+                p.terminate()
+        for p in self.procs.values():
+            try:
+                p.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(timeout=30)
+
+
+def _until(what, fn, deadline_s=CLUSTER_TIER_DEADLINE_S, every=0.25):
+    """Poll ``fn`` until it returns a true value; (value, seconds)."""
+    t0 = time.monotonic()
+    last = None
+    while time.monotonic() - t0 < deadline_s:
+        try:
+            out = fn()
+            if out:
+                return out, time.monotonic() - t0
+        except (OSError, SQLError, RuntimeError_) as e:
+            last = e
+        time.sleep(every)
+    raise AssertionError(f"phase 11: {what} within {deadline_s} s" + (f" ({last})" if last else ""))
+
+
+def _records(stored, dictionary, ids):
+    """The JSON insert body of rows ``ids`` of the table, one record a row."""
+    names = [d.decode() for d in dictionary]
+    body = []
+    for i in ids.tolist():
+        rec = {"id": i, "k": names[stored["k"][i]]}
+        for c, st in COLUMNS[1:]:
+            rec[c] = int(stored[c][i])
+        body.append({"table": "t", "data": rec})
+    return json.dumps(body).encode()
+
+
+def _http_post(port, path, body, timeout=120):
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=body)
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return resp.status, resp.read()
+
+
+def cluster_insert(port, stored, dictionary, order, n_want, split):
+    """Rows ``order[:n]`` through POST /api/v1/tables/insert on ``port``,
+    CLUSTER_TIER_BATCH records a request, one request at a time (clients
+    at once only slow the routed inserts down: they contend in node1).
+    ``n`` is ``n_want``, or the rows of the requests made before
+    CLUSTER_TIER_INSERT_S passed (the routed rate falls as the table
+    grows). After each
+    request ``split()`` says whether the table has split yet. Returns (n,
+    seconds, seconds to the first split or None)."""
+    B = CLUSTER_TIER_BATCH
+    t0 = time.perf_counter()
+    n, split_s = 0, None
+    while n < n_want and time.perf_counter() - t0 < CLUSTER_TIER_INSERT_S:
+        status, _ = _http_post(port, "/api/v1/tables/insert",
+                               _records(stored, dictionary, order[n:n + B]))
+        check(status == 201, f"phase 11: an insert answered {status}")
+        n += B
+        if split_s is None and split():
+            split_s = time.perf_counter() - t0
+        if n % (16 * B) == 0:
+            log(f"phase 11: {n} rows in {time.perf_counter() - t0:.1f} s")
+    return n, time.perf_counter() - t0, split_s
+
+
+def _scan_plan(info, begin, end):
+    """A scan of table t's rows in the keyrange [begin, end) of ``id``."""
+    scan = qn.SequentialScanNode("t", info.columns)
+    for i, (cname, ctype) in enumerate(info.columns):
+        scan.input_columns.append((cname, ctype))
+        scan.select_list.append(qn.SelectListEntry(ColumnReferenceNode(cname, ctype, i), cname))
+    scan.output_columns = [c[0] for c in info.columns]
+    scan.keyrange = ("id", begin, end)
+    return encode_plan(scan)
+
+
+def _column_values(col):
+    check(bool(col.valid.all()), "phase 11: a NULL where every row has a value")
+    if col.dictionary is not None:
+        return np.asarray(col.dictionary, dtype=object)[col.data]
+    return col.data
+
+
+def replicas_hold(cdir, addr_of, info, stored, dictionary, ids):
+    """Every replica the table's metadata names holds, in the partition's
+    keyrange, exactly the rows numpy has there (all columns). Returns the
+    number of (partition, replica) pairs checked, or 0 when one differs."""
+    meta = TableMetadata.from_json(cdir.get_table_config("default", "t")["metadata"])
+    pairs = 0
+    for e in meta.entries:
+        begin, end = meta.keyrange(e.partition_id)
+        lo = 0 if begin == "" else int(begin)
+        hi = (1 << 64) if end == "" else int(end)
+        want = ids[(ids >= lo) & (ids < hi)]
+        for sid in e.servers:
+            c = NativeTCPClient(*addr_of[sid])
+            try:
+                rel = relation_from_bytes(c.query_remote(_scan_plan(info, begin, end)))
+            finally:
+                c.close()
+            got = {nm: _column_values(col) for nm, col in zip(rel.names, rel.columns)}
+            order = np.argsort(got["id"], kind="stable")
+            if rel.num_rows != len(want) or not np.array_equal(got["id"][order], want):
+                return 0
+            for c_name, _st in COLUMNS:
+                expect = stored[c_name][want]
+                if c_name == "k":
+                    expect = np.asarray(dictionary, dtype=object)[expect]
+                if not np.array_equal(got[c_name][order], expect):
+                    return 0
+            pairs += 1
+    return pairs
+
+
+def _partitions(port):
+    rows, _ = http_sql(port, "DESCRIBE PARTITIONS t;")
+    return rows
+
+
+def cluster_expected(stored, dictionary, ids):
+    """name -> (sql, expected rows, compared as a set?) of the rows ``ids``."""
+    sub = {c: stored[c][ids] for c, _st in COLUMNS}
+    n = len(ids)
+    out = {}
+    q = {x[0]: x for x in queries(sub, dictionary, cat_lo=0)}
+    out["headline"] = (q["headline"][1], q["headline"][4], True)
+    g = {name: (sql, rows) for name, sql, rows in general_queries(sub, dictionary, n, cat_lo=0)}
+    out["G1_min_max_mean"] = (g["G1_min_max_mean"][0], sorted(g["G1_min_max_mean"][1]), True)
+    o = {x[0]: x for x in order_queries(sub, dictionary, n)}
+    out["topk_ts_desc"] = (o["topk_ts_desc"][1], o["topk_ts_desc"][4], False)
+    out["count_star"] = ("select count(*) from t;", [[str(n)]], False)
+    # the chart of the rows, as the port's host engine draws it in this process
+    sql = CHARTS["bar_headline"][3]
+    out["draw_bar"] = (sql, [[render(Runtime(device=None), provider_of(sub, dictionary, n),
+                                     sql)]], False)
+    return out
+
+
+def _answer(port, sql):
+    rows, _ = http_sql(port, sql)
+    return rows
+
+
+def cluster_answers(ports, expected, names=CLUSTER_TIER_QUERIES):
+    """Every query through each HTTP port: exact, warm ms (host clock,
+    median of CLUSTER_TIER_REPS). Returns {port label: {query: ms}}."""
+    out = {}
+    for label, port in ports.items():
+        out[label] = {}
+        for name in names:
+            sql, want, as_set = expected[name]
+            times = []
+            for _ in range(1 + CLUSTER_TIER_REPS):  # the first run is not timed
+                rows, ms = _timed(lambda: _answer(port, sql))
+                check(_same(rows, want, as_set),
+                      f"phase 11: {name} through {label} differs from numpy")
+                times.append(ms)
+            out[label][name] = statistics.median(times[1:])
+    return out
+
+
+def _exact(port, expected, name):
+    sql, want, as_set = expected[name]
+    return _same(_answer(port, sql), want, as_set)
+
+
+def _reported_down(cdir, port, victim, addr):
+    """The registry has ``victim`` down, and CLUSTER SHOW SERVERS through
+    ``port`` lists no server up at its address."""
+    status = {s.server_id: s.server_status for s in cdir.list_servers()}
+    rows, _ = http_sql(port, "CLUSTER SHOW SERVERS;")
+    up = {r[2] for r in rows if r[1] == "SERVER_UP"}
+    return status[victim] == SERVER_DOWN and addr not in up
+
+
+def phase_cluster(device):
+    """Phase 11 (b) with the nodes' routes on ``device`` ("cuda"; "cpu"
+    runs the kernels' plain versions). Returns the {"cluster": ...}
+    numbers."""
+    t_phase = time.perf_counter()
+    N = CLUSTER_TIER_ROWS
+    cols, dictionary = make_table(N, seed=11)
+    stored = stored_columns(cols)
+    stored["id"] = np.arange(N, dtype=np.uint64)
+    order = np.random.default_rng(12).permutation(N).astype(np.uint64)
+    zk = ZooKeeperServer().start()
+    zk_addr = f"{zk.address}/{CLUSTER_TIER_NAME}"
+    url = f"zk://{zk_addr}"
+    tmp = tempfile.mkdtemp(prefix="evql_phase11_")
+    nodes = _Nodes(tmp)
+    try:
+        cdir = ConfigDirectory(url)
+        cdir.cluster_create(CLUSTER_TIER_NAME, replication_factor=CLUSTER_TIER_RF)
+        # node1 first, so that it leads: the leader runs autosplit over
+        # its own rows, and the first partition lies on node1 and node2
+        t0 = time.perf_counter()
+        node_device = "cuda" if torch.device(device).type == "cuda" else "cpu"
+        nodes.start("node1", zk_addr, node_device)
+        ports = {"node1": nodes.wait_listening("node1")}
+        _until("node1 to lead", lambda: cdir.current_leader() == "node1")
+        for name in CLUSTER_TIER_NODES[1:]:
+            nodes.start(name, zk_addr, node_device)
+        for name in CLUSTER_TIER_NODES[1:]:
+            ports[name] = nodes.wait_listening(name)
+        start_s = time.perf_counter() - t0
+        servers = {s.server_id: s for s in cdir.list_servers()}
+        check(sorted(servers) == list(CLUSTER_TIER_NODES) and all(
+            s.server_status == SERVER_UP for s in servers.values()),
+            f"phase 11: the registry holds {servers}")
+        addr_of = {}
+        for sid, s in servers.items():
+            host, _, port = s.server_addr.rpartition(":")
+            addr_of[sid] = (host, int(port))
+        p1 = ports["node1"]
+        http_sql(p1, _create_sql("t", [("id", SType.UINT64)] + COLUMNS, pk="id"))
+        parts0 = _partitions(p1)
+        log(f"phase 11: {len(CLUSTER_TIER_NODES)} nodes up in {start_s:.1f} s, table t in"
+            f" {len(parts0)} partition(s) on {parts0[0][1]}")
+
+        def split():
+            meta = cdir.get_table_config("default", "t")["metadata"]
+            return len(meta["partitions"]) > len(parts0)
+
+        t_ins = time.perf_counter()
+        n, insert_s, split_s = cluster_insert(p1, stored, dictionary, order, N, split)
+        ids = np.sort(order[:n])
+        log(f"phase 11: {n} rows inserted through node1 in {insert_s:.1f} s"
+            f" ({n / insert_s:.1f} routed inserts a second)")
+        if split_s is None:
+            _until("a split", split)
+            split_s = time.perf_counter() - t_ins
+        provider = cluster_provider_from_config(url)
+        try:
+            info = provider.describe("t")
+        finally:
+            provider.close()
+        pairs, readback_s = _until(
+            "every replica's rows equal to numpy",
+            lambda: replicas_hold(cdir, addr_of, info, stored, dictionary, ids))
+        parts = _partitions(p1)
+        check(len(parts) > len(parts0), f"phase 11: DESCRIBE PARTITIONS shows {len(parts)}")
+        log(f"phase 11: first split {split_s:.1f} s after the inserts began; {len(parts)}"
+            f" partitions; {pairs} (partition, replica) pairs equal to numpy"
+            f" {readback_s:.1f} s after the inserts ended")
+
+        expected = cluster_expected(stored, dictionary, ids)
+        before_ms = cluster_answers({"node1": p1, "node2": ports["node2"]}, expected)
+        log(f"phase 11: {len(CLUSTER_TIER_QUERIES)} queries through node1 and node2 equal to"
+            f" numpy: {before_ms} ms (host clock, median of {CLUSTER_TIER_REPS})")
+
+        # the node a query of the last partition reads first: killing it
+        # makes the queries fail over to its other replica
+        meta = TableMetadata.from_json(cdir.get_table_config("default", "t")["metadata"])
+        victim = meta.entries[-1].servers[0]
+        via = "node1" if victim != "node1" else "node2"
+        nodes.kill(victim)
+        t_kill = time.perf_counter()
+        _r, down_s = _until(f"{victim} reported down", lambda: _reported_down(
+            cdir, ports[via], victim, "%s:%d" % addr_of[victim]))
+        _until(f"an exact answer through {via} after the kill",
+               lambda: _exact(ports[via], expected, "count_star"), every=0.05)
+        exact_s = time.perf_counter() - t_kill
+        after_ms = cluster_answers({via: ports[via]}, expected)
+        provider = cluster_provider_from_config(url)
+        try:
+            rt = Runtime(device=device)
+            for name in CLUSTER_TIER_QUERIES[:4]:
+                sql, want, as_set = expected[name]
+                rows = rt.build_query_plan(rt.new_transaction(provider), sql).execute(0).rows
+                check(_same(rows, want, as_set),
+                      f"phase 11: {name} through an in-process coordinator differs")
+            failed = provider.num_failed_shards
+        finally:
+            provider.close()
+        check(failed == 0, f"phase 11: {failed} failed shards after {victim} was killed")
+        log(f"phase 11: {victim} (the first replica of {len(meta.entries)} partition(s)'"
+            f" last) killed: down after {down_s:.3f} s, first exact answer through {via}"
+            f" after {exact_s:.3f} s; the queries through {via} equal to numpy:"
+            f" {after_ms} ms")
+    except BaseException:
+        for name in nodes.logs:
+            log(f"phase 11: {name}'s output ends: {nodes.log_of(name)[-3000:]}")
+        raise
+    finally:
+        nodes.stop_all()
+        zk.stop()
+        reset_sessions()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(nodes=len(CLUSTER_TIER_NODES), replication_factor=CLUSTER_TIER_RF,
+                rows=n, rows_wanted=N, cut=n < N, split_threshold_rows=CLUSTER_TIER_SPLIT_ROWS,
+                insert_s=insert_s, routed_inserts_per_s=n / insert_s,
+                partitions_at_creation=len(parts0), partitions=len(parts),
+                replica_pairs_read_back=pairs, start_s=start_s, first_split_s=split_s,
+                read_back_s=readback_s, query_ms=before_ms, query_ms_after_kill=after_ms,
+                placements=[e.servers for e in meta.entries], killed=victim, queried_after=via,
+                down_s=down_s, first_exact_after_kill_s=exact_s, failed_shards=failed,
+                phase_s=time.perf_counter() - t_phase)
+
+
 _REPLACES = {
     "hash_groupby": ("eventql_tpu_torch/kernels/csrc/hash_groupby.cu",
                      "eventql_tpu/kernels/groupby.py:246 (not a TPU kernel:"
@@ -4075,10 +4576,15 @@ def main():
     storage_shapes = mesh_shapes(storage_first, "phase 8", "stored")
     fuzz = phase_fuzz(device)
     serving, serving_first, cluster_first = phase_serving("cuda", serving_tables, run["e2e"])
-    del serving_tables
     serving_shapes = mesh_shapes(serving_first, "phase 10", "serving")
     cluster_shapes = mesh_shapes(cluster_first, "phase 10", "cluster")
     del serving_first, cluster_first
+    charts, chart_launches, chart_first = phase_charts(
+        device, serving_tables["cols"], serving_tables["dictionary"], run["e2e"])
+    del serving_tables
+    chart_shapes = mesh_shapes(chart_first, "phase 11", "chart")
+    del chart_first
+    tier = phase_cluster(device)
     kernels = []
     for name, t in times.items():
         source, replaces, entry = _REPLACES[name]
@@ -4088,6 +4594,7 @@ def main():
         launches_by_path["multihost"] = multi_launches[name]
         launches_by_path["storage"] = sum(c[name] for c in storage_launches.values())
         launches_by_path["serving"] = sum(c[name] for c in serving["launches"].values())
+        launches_by_path["charts"] = sum(c[name] for c in chart_launches.values())
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -4110,6 +4617,7 @@ def main():
             "storage_shape": storage_shapes.get(name),
             "serving_shape": serving_shapes.get(name),
             "cluster_shape": cluster_shapes.get(name),
+            "chart_shape": chart_shapes.get(name),
         })
         # probe_join_gid: its table-build kernels alone; dim_join_gid: one
         # row (its table build) and the earlier kernel; hash_groupby: its
@@ -4132,6 +4640,8 @@ def main():
     log(json.dumps({"storage": storage}))
     log(json.dumps({"fuzz": fuzz}))
     log(json.dumps({"serving": serving}))
+    log(json.dumps({"cluster": dict(card=smi, charts=charts, chart_launches=chart_launches,
+                                    tier=tier)}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

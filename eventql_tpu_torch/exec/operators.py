@@ -1341,4 +1341,7 @@ def _exec_cluster_show_servers(node, txn) -> Relation:
 
 
 def _exec_chart(node, txn) -> Relation:
-    raise _not_ported("DRAW charts (exec.chart)")
+    from eventql_tpu_torch.exec.chart import render_chart
+
+    svg = render_chart(node, txn)
+    return Relation(["__chart"], [Column.from_strings([svg])], 1)

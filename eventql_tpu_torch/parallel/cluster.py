@@ -21,7 +21,7 @@ from __future__ import annotations
 import concurrent.futures
 import io
 import struct
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -32,7 +32,9 @@ from eventql_tpu_torch.exec.runtime import TableInfo
 from eventql_tpu_torch.plan import nodes as qn
 from eventql_tpu_torch.plan.builder import TableProvider
 
+# reference: evqld.cc:245-246 fan-out limits
 MAX_CONCURRENT_SHARDS = 256  # reference: evqld.cc:245
+MAX_CONCURRENT_SHARDS_PER_HOST = 6  # reference: evqld.cc:246
 
 
 # -- partial serialization --------------------------------------------------
@@ -159,15 +161,23 @@ def relation_from_bytes(data: bytes) -> Relation:
 
 
 class ClusterTableProvider(TableProvider):
-    """Routes queries to an explicit list of worker processes, each of
-    which owns its local rows: every query fans to all of them
-    (reference: TSDBTableProvider). The partition-metadata tier (routed
-    and replicated writes, one replica per partition, failover) needs
-    config/ and db/metadata_{file,service,transport}.py, which are not
-    ported to eventql_tpu_torch yet."""
+    """Routes queries to worker processes that own table shards
+    (reference: TSDBTableProvider + metadata partition lookup)."""
 
-    def __init__(self, workers: List[Tuple[str, int]]):
+    def __init__(
+        self,
+        workers: List[Tuple[str, int]],
+        cdir=None,
+        server_map: Optional[Dict[str, Tuple[str, int]]] = None,
+        failed_shard_policy: str = "tolerate",
+    ):
         self.workers = list(workers)
+        # cluster registry + server_id → address book enable the
+        # metadata tier: partition-routed writes with replication and
+        # one-replica-per-partition reads (absent → every worker owns
+        # its local rows and queries fan to all of them)
+        self.cdir = cdir
+        self.server_map = dict(server_map or {})
         # pooled server-to-server connections, shared process-wide so
         # per-request provider instances reuse sockets across queries
         # (reference: TCPConnectionPool in db/database.cc:283-290)
@@ -175,6 +185,11 @@ class ClusterTableProvider(TableProvider):
 
         self.pool = global_pool()
         self._rr = 0  # round-robin insert cursor
+        # reference default: query_failed_shard_policy=tolerate
+        # (evqld.cc:247) — queries return partial results with
+        # failed-shard accounting instead of erroring
+        self.failed_shard_policy = failed_shard_policy
+        self.num_failed_shards = 0
 
     def _query(self, addr, sql: str):
         """One local-only SQL request on a pooled connection."""
@@ -213,6 +228,17 @@ class ClusterTableProvider(TableProvider):
                 continue
         return [self.describe(n) for n in sorted(names)]
 
+    def table_partitions(self, table_name: str):
+        """(partition_id, servers, (begin, end)) rows for DESCRIBE
+        PARTITIONS (reference: describe_partitions.cc)."""
+        meta = self._table_metadata(table_name)
+        if meta is None:
+            return None
+        return [
+            (e.partition_id, list(e.servers), meta.keyrange(e.partition_id))
+            for e in meta.entries
+        ]
+
     def cluster_servers(self):
         """(name, status, addr) rows for CLUSTER SHOW SERVERS."""
 
@@ -228,25 +254,148 @@ class ClusterTableProvider(TableProvider):
             )
         return rows
 
+    # -- partition metadata --------------------------------------------
+    def _table_metadata(self, table_name: str):
+        from eventql_tpu_torch.db.metadata import TableMetadata
+
+        if self.cdir is None:
+            return None
+        cfg = self.cdir.get_table_config("default", table_name)
+        if not cfg or "metadata" not in cfg:
+            return None
+        return TableMetadata.from_json(cfg["metadata"])
+
+    def _replication_factor(self) -> int:
+        if self.cdir is None:
+            return 1
+        cc = self.cdir.get_cluster_config() or {}
+        return int(cc.get("replication_factor", 1))
+
+    def _metadata_coordinator(self):
+        """CAS coordinator over this provider's address book
+        (reference: db/metadata_coordinator.cc)."""
+        from eventql_tpu_torch.db.metadata_service import MetadataCoordinator
+        from eventql_tpu_torch.db.metadata_transport import MetadataServiceProxy
+
+        proxies: Dict[str, MetadataServiceProxy] = {}
+
+        def factory(server_id: str):
+            proxy = proxies.get(server_id)
+            if proxy is None:
+                addr = self._addr_of(server_id)
+                if addr is None:
+                    raise RuntimeError_(
+                        f"unknown metadata server: {server_id}"
+                    )
+                proxy = MetadataServiceProxy(addr[0], addr[1])
+                proxies[server_id] = proxy
+            return proxy
+
+        return MetadataCoordinator(self.cdir, remote_service_factory=factory)
+
+    def _addr_of(self, server_id: str) -> Optional[Tuple[str, int]]:
+        return self.server_map.get(server_id)
+
     # -- DDL / DML -----------------------------------------------------
-    # DDL broadcasts to every worker; an insert goes to one worker,
-    # round robin.
+    # DDL broadcasts to every node (the reference pushes table configs
+    # through the metadata service); inserts route by partition key to
+    # all replicas of the owning partition with majority confirmation
+    # (reference: table_service.cc:933-1058).
     def create_table(self, node: qn.CreateTableNode):
+        from eventql_tpu_torch.db.metadata import (
+            KEYSPACE_STRING,
+            KEYSPACE_UINT64,
+            TableMetadata,
+        )
+
         sql = create_table_sql(node)
         for addr in self.workers:
             self._query(addr, sql)
+
+        if self.cdir is not None and node.primary_key and self.server_map:
+            pk = node.primary_key[0]
+            pk_type = ""
+            for cd in node.columns:
+                if cd.column_name == pk:
+                    pk_type = cd.column_type.upper()
+            keyspace = (
+                KEYSPACE_STRING
+                if pk_type == "STRING"
+                else KEYSPACE_UINT64
+            )
+            sids = sorted(self.server_map)
+            nrepl = min(max(1, self._replication_factor()), len(sids))
+            # create the table's METADATA transaction chain on the
+            # metadata servers (majority store + head pointer commit,
+            # reference: db/metadata_coordinator.cc createFile +
+            # doc/internals/partitioning.txt §5.1); the derived
+            # partition-map view lands in the table config for routing.
+            # Nodes without a metadata service (embedded test workers)
+            # fall back to a direct registry write of the same view.
+            from eventql_tpu_torch.db.metadata_file import MetadataFile
+
+            mfile = MetadataFile.initial(
+                keyspace, pk, node.table_name, sids[:nrepl]
+            )
+            try:
+                self._metadata_coordinator().create_file(
+                    "default", node.table_name, mfile, sids[:nrepl]
+                )
+            except RuntimeError_:
+                meta = TableMetadata.initial(
+                    keyspace, pk, node.table_name, sids[:nrepl]
+                )
+                self.cdir.update_table_config(
+                    "default", node.table_name, {"metadata": meta.to_json()}
+                )
 
     def drop_table(self, table_name: str):
         for addr in self.workers:
             self._query(addr, f"drop table `{table_name}`;")
 
     def insert_json(self, table_name: str, json_data: str):
-        addr = self.workers[self._rr % len(self.workers)]
-        self._rr += 1
-        self.pool.call(
-            addr,
-            lambda c: c.insert_json(table_name, [json_data], local=True),
-        )
+        import json as _json
+
+        meta = self._table_metadata(table_name)
+        if meta is None:
+            addr = self.workers[self._rr % len(self.workers)]
+            self._rr += 1
+            self.pool.call(
+                addr,
+                lambda c: c.insert_json(table_name, [json_data], local=True),
+            )
+            return
+
+        record = _json.loads(json_data)
+        key = record.get(meta.partition_key)
+        if key is None:
+            raise RuntimeError_(f"missing field: {meta.partition_key}")
+        entry = meta.lookup(key)
+
+        # write every replica; require majority confirmations
+        # (EVQL_CLEVEL_WRITE_RELAXED semantics, table_service.cc:1036-48)
+        nconf = 0
+        for sid in entry.servers:
+            addr = self._addr_of(sid)
+            if addr is None:
+                continue
+            try:
+                self.pool.call(
+                    addr,
+                    lambda c: c.insert_json(
+                        table_name, [json_data], local=True
+                    ),
+                )
+                nconf += 1
+            except (OSError, SQLError, ConnectionError):
+                pass
+        required = (len(entry.servers) + 1) // 2
+        if nconf < required:
+            raise RuntimeError_(
+                "couldn't perform enough replica writes for the requested"
+                f" consistency level; only {nconf} out of {required}"
+                " (required) writes succeeded"
+            )
 
     def insert(self, table_name: str, columns, values):
         record = {}
@@ -303,38 +452,155 @@ class ClusterTableProvider(TableProvider):
         return Relation(names, cols, sum(sh.num_rows for sh in shards))
 
     def get_table_chunks(self, table_name: str, chunk_rows: int):
-        """Worker-at-a-time streaming source: the coordinator holds at
-        most ONE worker's rows while a huge SELECT streams out
+        """Partition-at-a-time streaming source: the coordinator holds
+        at most ONE partition's rows while a huge SELECT streams out
         (reference: the scheduler pulls remote partitions through a
         cursor one at a time, sql/scheduler.cc + result_cursor.h:35-75).
-        Row order equals get_table_data (workers in list order)."""
+        Row order equals get_table_data (jobs in placement order)."""
+        import numpy as np
+
         plan_data = self._scan_all_plan(table_name)
         ctx = getattr(self, "exec_ctx", None)
-        if ctx is not None:
-            ctx.add_tasks(len(self.workers))
-        for addr in self.workers:
-            shard = self._remote_fetch(addr, plan_data)
+        jobs = self._partition_jobs(table_name, plan_data)
+        if jobs is None:
             if ctx is not None:
-                ctx.complete_task()
+                ctx.add_tasks(len(self.workers))
+
+            def _worker_iter():
+                for addr in self.workers:
+                    out = self._remote_fetch(addr, plan_data)
+                    if ctx is not None:
+                        ctx.complete_task()
+                    yield out
+
+            shard_iter = _worker_iter()
+        else:
+            if ctx is not None:
+                ctx.add_tasks(len(jobs))
+            shard_iter = (
+                self._fetch_with_failover(job, self._remote_fetch)
+                for job in jobs
+            )
+        got_any = False
+        for shard in shard_iter:
+            if shard is None:  # tolerated failed shard
+                continue
+            got_any = True
             yield from shard.iter_chunks(chunk_rows)
+        if jobs is not None and not got_any:
+            raise SQLError("no live replica for any partition")
 
-    # -- worker fan-out ------------------------------------------------
-    def _per_partition(self, table_name, plan_data, fetch, scan_key):
-        """Run `fetch(addr, plan_data)` once per worker, concurrently."""
+    # -- partition fan-out ---------------------------------------------
+    def _partition_jobs(self, table_name, plan_data):
+        """(entry, payload) jobs, one per partition with the plan's
+        seqscan scoped to the partition keyrange — or None when the
+        table has no partition metadata (whole-plan per worker)."""
+        import copy
+
+        from eventql_tpu_torch.plan.coder import decode_plan, encode_plan
+
+        meta = self._table_metadata(table_name)
+        if meta is None:
+            return None
+        # decode-patch-reencode works for BOTH wire encodings (binary
+        # qtree default, JSON debug): scope the plan's seqscan to each
+        # partition's keyrange like the reference's per-partition qtree
+        # copies (server/sql/scheduler.cc:242-261)
+        base = decode_plan(plan_data)
+        jobs = []
+        for entry in meta.entries:
+            begin, end = meta.keyrange(entry.partition_id)
+            node = copy.deepcopy(base)
+            target = node
+            while not isinstance(target, qn.SequentialScanNode):
+                target = target.table
+            target.keyrange = (meta.partition_key, begin, end)
+            jobs.append((entry, encode_plan(node)))
+        return jobs
+
+    def _fetch_with_failover(self, job, fetch, host_sem=None):
+        """First live replica down the placement list; tolerate policy
+        returns None (reference: groupby.cc:511,622-628). Each job is
+        one shard TASK for progress accounting (reference:
+        execution_context.h incrementNumTasksCompleted per shard)."""
         ctx = getattr(self, "exec_ctx", None)
-        if ctx is not None:
-            ctx.add_tasks(len(self.workers))
-
-        def one_worker(a):
-            out = fetch(a, plan_data)
+        entry, payload = job
+        last_err = None
+        for sid in entry.servers:
+            addr = self._addr_of(sid)
+            if addr is None:
+                continue
+            try:
+                if host_sem is not None:
+                    with host_sem(addr):
+                        out = fetch(addr, payload)
+                else:
+                    out = fetch(addr, payload)
+                if ctx is not None:
+                    ctx.complete_task()
+                return out
+            except (OSError, ConnectionError) as e:
+                last_err = e  # replica down: fail over to the next
+        if self.failed_shard_policy == "tolerate":
+            self.num_failed_shards += 1
             if ctx is not None:
-                ctx.complete_task()
-            return out
+                ctx.fail_task()
+            return None
+        raise SQLError(
+            f"no live replica for partition {entry.partition_id}"
+            + (f" ({last_err})" if last_err else "")
+        )
+
+    def _per_partition(self, table_name, plan_data, fetch, scan_key):
+        """Run `fetch(addr, payload)` once per partition (keyrange-scoped
+        plan, first live replica; failover down the placement list), or
+        once per worker when the table has no partition metadata."""
+        ctx = getattr(self, "exec_ctx", None)
+        jobs = self._partition_jobs(table_name, plan_data)
+        if jobs is None:
+            if ctx is not None:
+                ctx.add_tasks(len(self.workers))
+
+            def one_worker(a):
+                out = fetch(a, plan_data)
+                if ctx is not None:
+                    ctx.complete_task()
+                return out
+
+            with concurrent.futures.ThreadPoolExecutor(
+                max_workers=min(len(self.workers), MAX_CONCURRENT_SHARDS)
+            ) as pool:
+                return list(pool.map(one_worker, self.workers))
+        if ctx is not None:
+            ctx.add_tasks(len(jobs))
+
+        # per-host in-flight cap (reference: TCPAsyncClient's
+        # max_concurrent_tasks_per_host, client_tcp.h:109-231)
+        import threading as _threading
+
+        host_sems = {}
+        sems_lock = _threading.Lock()
+
+        def _host_sem(addr):
+            with sems_lock:
+                sem = host_sems.get(addr)
+                if sem is None:
+                    sem = _threading.Semaphore(
+                        MAX_CONCURRENT_SHARDS_PER_HOST
+                    )
+                    host_sems[addr] = sem
+                return sem
+
+        def one(job):
+            return self._fetch_with_failover(job, fetch, _host_sem)
 
         with concurrent.futures.ThreadPoolExecutor(
-            max_workers=min(len(self.workers), MAX_CONCURRENT_SHARDS)
+            max_workers=min(len(jobs), MAX_CONCURRENT_SHARDS)
         ) as pool:
-            return list(pool.map(one_worker, self.workers))
+            out = [r for r in pool.map(one, jobs) if r is not None]
+        if not out:
+            raise SQLError("no live replica for any partition")
+        return out
 
     # -- distributed execution -----------------------------------------
     def execute_pushdown_limit(self, node: qn.LimitNode):
@@ -490,6 +756,14 @@ def cluster_provider_from_config(config_dir_path: str) -> "ClusterTableProvider"
     """Build the coordinator's fan-out provider from the standalone
     config directory: live-worker list plus the server_id address book
     and the registry handle for partition metadata."""
-    from eventql_tpu_torch.exec.operators import _not_ported
+    from eventql_tpu_torch.config.config_directory import SERVER_UP, ConfigDirectory
 
-    raise _not_ported("config/")
+    cdir = ConfigDirectory(config_dir_path)
+    server_map = {}
+    for s in cdir.list_servers():
+        if s.server_status == SERVER_UP and s.server_addr:
+            host, _, port = s.server_addr.rpartition(":")
+            server_map[s.server_id] = (host or "127.0.0.1", int(port))
+    return ClusterTableProvider(
+        cdir.worker_addrs(), cdir=cdir, server_map=server_map
+    )

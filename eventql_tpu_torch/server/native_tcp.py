@@ -196,7 +196,7 @@ class NativeTCPServer:
     def __init__(
         self, table_service, host="127.0.0.1", port=9176,
         query_provider_factory=None, client_auth=None,
-        query_cache=None, device="cuda", mesh_shards=None,
+        metadata_service=None, query_cache=None, device="cuda", mesh_shards=None,
     ):
         """``device``: where the queries' routes run ("cuda", which
         raises here without a card; "cpu" for the kernels' plain
@@ -213,6 +213,7 @@ class NativeTCPServer:
         self.query_provider_factory = (
             query_provider_factory or (lambda: self.table_service)
         )
+        self.metadata_service = metadata_service
         self.client_auth = client_auth or TrustClientAuth()
         self.device = device
         self.mesh_shards = mesh_shards
@@ -886,16 +887,123 @@ class NativeTCPServer:
         _send_frame(sock, OP_ACK, F_ENDOFREQUEST, b"")
 
     def _handle_meta(self, sock, opcode, payload):
-        """METADATA-file operations (reference:
-        transport/native/ops/meta_*.cc). The metadata service
-        (db/metadata_service.py) is not ported to eventql_tpu_torch
-        yet, so every op answers as a server without one does."""
-        _send_frame(
-            sock,
-            OP_ERROR,
-            F_ENDOFREQUEST,
-            write_lenencstr(b"no metadata service on this server"),
-        )
+        """Serve METADATA-file operations for tables whose metadata
+        chain lives on this server (reference:
+        transport/native/ops/meta_performop.cc, meta_createfile.cc,
+        meta_getfile.cc, meta_discover.cc, meta_listpartitions.cc,
+        meta_findpartition.cc). Request/response bodies are JSON."""
+        import json
+
+        from eventql_tpu_torch.core.errors import RuntimeError_
+
+        svc = self.metadata_service
+        try:
+            if svc is None:
+                raise RuntimeError_("no metadata service on this server")
+            req_raw, _pos = read_lenencstr(payload, 0)
+            req = json.loads(req_raw.decode("utf-8"))
+            if opcode == OP_META_CREATEFILE:
+                from eventql_tpu_torch.db.metadata_file import MetadataFile
+
+                svc.create_file(
+                    req["db"], req["table"], MetadataFile.from_json(req["file"])
+                )
+                _send_frame(sock, OP_ACK, F_ENDOFREQUEST, b"")
+                return
+            if opcode == OP_META_GETFILE:
+                f = svc.get_file(req["db"], req["table"], req["txnid"])
+                body = json.dumps({"file": f.to_json()}).encode("utf-8")
+                _send_frame(
+                    sock, OP_META_GETFILE_RESULT, F_ENDOFREQUEST,
+                    write_lenencstr(body),
+                )
+                return
+            if opcode == OP_META_PERFORMOP:
+                from eventql_tpu_torch.db.metadata_file import MetadataOperation
+
+                checksum, out = svc.perform_operation(
+                    MetadataOperation.from_json(req["op"])
+                )
+                body = json.dumps(
+                    {"checksum": checksum, "file": out}
+                ).encode("utf-8")
+                _send_frame(
+                    sock, OP_META_PERFORMOP_RESULT, F_ENDOFREQUEST,
+                    write_lenencstr(body),
+                )
+                return
+            if opcode == OP_META_DISCOVER:
+                resp = svc.discover(
+                    req["db"], req["table"],
+                    int(req.get("min_txnseq", 0)), req["request"],
+                )
+                body = json.dumps(resp.to_json()).encode("utf-8")
+                _send_frame(
+                    sock, OP_META_DISCOVER_RESULT, F_ENDOFREQUEST,
+                    write_lenencstr(body),
+                )
+                return
+            if opcode == OP_META_LISTPARTITIONS:
+                f = svc.store.latest_file(req["db"], req["table"])
+                if f is None:
+                    raise RuntimeError_("metadata file not available")
+                idxs = f.range_indices(
+                    req.get("begin", ""), req.get("end", "")
+                )
+                body = json.dumps(
+                    {
+                        "txnid": f.txnid,
+                        "partitions": [
+                            {
+                                "partition_id": f.entries[i].partition_id,
+                                "keyrange_begin": f.entries[i].begin,
+                                "keyrange_end": f.entry_end(i),
+                                "servers": [
+                                    p.server_id for p in f.entries[i].servers
+                                ],
+                            }
+                            for i in idxs
+                        ],
+                    }
+                ).encode("utf-8")
+                _send_frame(
+                    sock, OP_META_LISTPARTITIONS_RESULT, F_ENDOFREQUEST,
+                    write_lenencstr(body),
+                )
+                return
+            if opcode == OP_META_FINDPARTITION:
+                f = svc.store.latest_file(req["db"], req["table"])
+                if f is None:
+                    raise RuntimeError_("metadata file not available")
+                i = f.lookup_index(req["key"])
+                body = json.dumps(
+                    {
+                        "txnid": f.txnid,
+                        "partition_id": f.entries[i].partition_id,
+                        "keyrange_begin": f.entries[i].begin,
+                        "keyrange_end": f.entry_end(i),
+                        "servers": [
+                            p.server_id for p in f.entries[i].servers
+                        ],
+                    }
+                ).encode("utf-8")
+                _send_frame(
+                    sock, OP_META_FINDPARTITION_RESULT, F_ENDOFREQUEST,
+                    write_lenencstr(body),
+                )
+                return
+            if opcode == OP_META_DROPFILE:
+                svc.drop_file(req["db"], req["table"], req["txnid"])
+                _send_frame(sock, OP_ACK, F_ENDOFREQUEST, b"")
+                return
+            raise RuntimeError_("invalid opcode")
+        except Exception as e:
+            _send_frame(
+                sock,
+                OP_ERROR,
+                F_ENDOFREQUEST,
+                write_lenencstr(str(e).encode("utf-8")),
+            )
 
 
 # -- client -----------------------------------------------------------------

@@ -501,10 +501,23 @@ def test_coordinator_routes_serve_the_pulled_rows():
     assert got == want and len(got) == 3 and routed == 1
 
 
-def test_not_ported_paths_name_what_is_missing():
-    with pytest.raises(PORT.cluster.RuntimeError_, match="not ported to eventql_tpu_torch"
-                       " yet: config/"):
-        PORT.cluster.cluster_provider_from_config("cluster.cfg")
+def test_not_ported_paths_name_what_is_missing(tmp_path):
+    """cluster_provider_from_config, which named config/ as missing until
+    the cluster tier was ported, builds over a registry file the provider
+    the JAX package builds: its live workers and address book."""
+    from eventql_tpu.config import config_directory as jax_cd
+    from eventql_tpu_torch.config import config_directory as port_cd
+
+    path = str(tmp_path / "cluster.cfg")
+    cdir = port_cd.ConfigDirectory(path)
+    cdir.cluster_create("c", replication_factor=2)
+    for i, status in enumerate(("SERVER_UP", "SERVER_DOWN", "SERVER_UP")):
+        cdir.update_server_config(port_cd.ServerConfig(f"n{i}", f"127.0.0.1:{9100 + i}", status))
+    got = PORT.cluster.cluster_provider_from_config(path)
+    want = JAX.cluster.cluster_provider_from_config(path)
+    assert (got.workers, got.server_map) == (want.workers, want.server_map)
+    assert got.server_map == {"n0": ("127.0.0.1", 9100), "n2": ("127.0.0.1", 9102)}
+    assert [s.server_id for s in jax_cd.ConfigDirectory(path).list_servers()] == ["n0", "n1", "n2"]
 
 
 def test_coordinator_ddl_inserts_and_streamed_rows():

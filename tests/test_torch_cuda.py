@@ -803,3 +803,21 @@ def test_concurrent_first_queries_on_the_card(cuda_device):
                          capture_output=True, text=True, timeout=900)
     assert out.returncode == 0, out.stdout[-3000:] + out.stderr[-3000:]
     assert "CONCURRENT-FIRST-OK" in out.stdout
+
+
+def test_draw_over_the_general_route_on_the_card_equals_the_cpu_route(cuda_device):
+    """phase 11's charts at 2^22 rows: each SVG under device "cuda" equals
+    the one under device "cpu" (the plain versions), and the AREACHART's
+    sub-query launches the hash aggregate."""
+    import chip_smoke
+    from eventql_tpu_torch.exec.runtime import Runtime
+
+    n = 1 << 22
+    cols, dictionary = chip_smoke.make_table(n, seed=9)
+    provider = chip_smoke.provider_of(cols, dictionary, n)
+    for name, (_kernels, _bare, _counter, sql) in chip_smoke.CHARTS.items():
+        want = chip_smoke.render(Runtime(device="cpu"), provider, sql)
+        chip_smoke.zero_launch_counts()
+        assert chip_smoke.render(Runtime(device=cuda_device), provider, sql) == want, name
+        if name == "area_ydomain_g1":
+            assert chip_smoke.launch_counts()["hash_groupby"] == 1

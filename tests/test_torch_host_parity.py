@@ -249,20 +249,19 @@ def test_host_engines_raise_the_same_message(query):
 
 
 def test_cut_out_tiers_raise_by_name():
-    """Plans that need a tier outside the port so far say which one
-    (charts). The query cache is ported: over a provider without
-    immutable table files it is never consulted, and the GROUP BY answers
-    as without it."""
-    from eventql_tpu_torch.core.errors import RuntimeError_
+    """No tier is cut out of the port's executor any more: the charts
+    (the last one) draw what the JAX host engine draws. The query cache
+    is ported: over a provider without immutable table files it is never
+    consulted, and the GROUP BY answers as without it."""
     from eventql_tpu_torch.exec.runtime import Transaction
 
-    _pj, pt = _providers()
+    pj, pt = _providers()
     rt = TorchRuntime(device=None)
-    with pytest.raises(RuntimeError_, match="not ported.*chart"):
-        rt.execute_query(
-            rt.new_transaction(pt),
-            "draw linechart; select value as y, user_id as x from ev;",
-        )
+    draw = "draw linechart; select value as y, user_id as x from ev;"
+    (svg,) = rt.execute_query(rt.new_transaction(pt), draw)[0].rows[0]
+    jrt = Runtime()
+    assert svg.startswith("<svg") and svg == jrt.execute_query(
+        jrt.new_transaction(pj), draw)[0].rows[0][0]
     q = "select city, count(1) from ev group by city;"
     txn = Transaction(pt, query_cache=object(), device=None)
     assert rt.build_query_plan(txn, q).execute(0).rows == rt.execute_query(

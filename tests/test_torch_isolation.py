@@ -369,6 +369,107 @@ def test_serving_modules_read_no_environment():
         assert "environ" not in text and "getenv" not in text, path
 
 
+_CLUSTER_MODULES = [
+    "exec.chart_style", "exec.chart", "config.config_directory",
+    "config.config_directory_zookeeper", "config.zookeeper", "config.process_config",
+    "db.metadata_file", "db.metadata_service", "db.metadata_transport", "db.server_allocator",
+    "db.replication", "db.rebalance", "db.leader", "db.metadata_replication", "db.monitor",
+    "db.autosplit",
+]
+
+_CLUSTER_PROGRAM = r"""
+import importlib, json, sys, tempfile
+for name in MODULES:
+    importlib.import_module("eventql_tpu_torch." + name)
+from eventql_tpu_torch.config import config_directory_zookeeper
+from eventql_tpu_torch.config.config_directory import SERVER_UP, ConfigDirectory, ServerConfig
+from eventql_tpu_torch.config.zookeeper import ZooKeeperServer
+from eventql_tpu_torch.db import autosplit
+from eventql_tpu_torch.db.metadata_service import MetadataService, MetadataStore
+from eventql_tpu_torch.db.metadata_transport import remote_factory_from_cdir
+from eventql_tpu_torch.db.replication import ReplicationWorker
+from eventql_tpu_torch.db.table_service import TableService
+from eventql_tpu_torch.exec import device_exec
+from eventql_tpu_torch.exec.runtime import Runtime
+from eventql_tpu_torch.parallel.cluster import cluster_provider_from_config
+from eventql_tpu_torch.server.native_tcp import NativeTCPServer
+
+zk = ZooKeeperServer().start()
+url = "zk://%s/iso" % zk.address
+cdir = ConfigDirectory(url)
+cdir.cluster_create("iso", replication_factor=2)
+servers = []
+for i in range(3):
+    s = NativeTCPServer(TableService(), port=0, device="cpu", metadata_service=MetadataService(
+        MetadataStore(tempfile.mkdtemp())))
+    s.query_provider_factory = lambda: cluster_provider_from_config(url)
+    servers.append(s.start())
+    cdir.update_server_config(ServerConfig("node%d" % (i + 1), "127.0.0.1:%d" % s.port, SERVER_UP))
+rt = Runtime(device="cpu")
+def q(sql):
+    p = cluster_provider_from_config(url)
+    try:
+        return rt.build_query_plan(rt.new_transaction(p), sql).execute(0).rows
+    finally:
+        p.close()
+q("CREATE TABLE ev (t uint64, k string, v uint64, PRIMARY KEY (t));")
+p = cluster_provider_from_config(url)
+for i in range(30):
+    p.insert_json("ev", json.dumps({"t": i, "k": "k%d" % (i % 3), "v": i}))
+p.close()
+assert autosplit.run_once(servers[0].table_service, cdir, threshold_rows=10,
+                          remote_factory=remote_factory_from_cdir(cdir))
+workers = [ReplicationWorker(s.table_service, url, "node%d" % (i + 1))
+           for i, s in enumerate(servers)]
+assert any("loaded" in a for a in workers[2].lifecycle_once())
+assert any("split finalized" in a for a in workers[0].lifecycle_once())
+assert len(q("describe partitions ev;")) == 2
+assert q("select k, sum(v) from ev group by k order by k;") == [
+    ["k%d" % g, str(sum(range(g, 30, 3)))] for g in range(3)]
+for s in servers:
+    s.stop()
+zk.stop()
+config_directory_zookeeper.reset_sessions()
+before = device_exec.FUSED_GROUPBY_COUNT
+svc = TableService()
+tx = lambda sql: rt.build_query_plan(rt.new_transaction(svc), sql).execute(0)
+tx("CREATE TABLE t (k string, v uint64);")
+svc.insert_json_batch("t", json.dumps([{"k": "a%d" % (i % 5), "v": i} for i in range(50)]))
+svg = tx("DRAW BARCHART; SELECT k AS x, sum(v) AS y FROM t GROUP BY k ORDER BY x;").rows[0][0]
+assert svg.startswith("<svg") and device_exec.FUSED_GROUPBY_COUNT == before + 1
+bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+       or m == "jaxlib" or m == "eventql_tpu" or m.startswith("eventql_tpu.")]
+assert not bad, bad
+print("CLUSTER-ISOLATED-OK")
+"""
+
+
+def test_cluster_modules_run_without_jax():
+    """The cluster tier's modules import and serve (an embedded ZooKeeper
+    registry, three native servers with metadata services, routed and
+    replicated inserts, an autosplit whose split a replica loads and
+    another finalizes, a query over the new partitions, a DRAW on the
+    GROUP BY route) with neither jax nor eventql_tpu loaded."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run(
+        [sys.executable, "-c", f"MODULES = {_CLUSTER_MODULES!r}\n" + _CLUSTER_PROGRAM],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "CLUSTER-ISOLATED-OK" in out.stdout
+
+
+def test_cluster_modules_read_no_environment():
+    """None of the cluster tier's modules reads an environment variable."""
+    for name in _CLUSTER_MODULES:
+        path = os.path.join(REPO, "eventql_tpu_torch", *name.split(".")) + ".py"
+        with open(path, encoding="utf-8") as fh:
+            text = fh.read()
+        assert "environ" not in text and "getenv" not in text, path
+
+
 def _free_port() -> int:
     s = socket.socket()
     s.bind(("127.0.0.1", 0))

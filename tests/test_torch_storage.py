@@ -11,9 +11,10 @@ by primary key, commit, reopen, compact, garbage collection); the wire
 helpers db/shredded_record_list.py imports from the port's
 server/native_tcp.py against the JAX package's; and SQL over a stored
 table under Runtime(device="cpu"), whose routes must serve it, against
-the JAX host engine. The serving tier's copies (plan coders, servers,
-cluster fan-out, CLIs) are held to their originals here too, each
-deliberate difference listed by the region it lies in.
+the JAX host engine. The serving and cluster tiers' copies (plan coders, servers,
+cluster fan-out, CLIs, charts, the config directory, the partition
+metadata and the cluster's workers) are held to their originals here
+too, each deliberate difference listed by the region it lies in.
 """
 
 import importlib
@@ -97,13 +98,11 @@ SERVING_COPIES = {
     # encode_plan takes binary=True and reads no environment variable
     "plan.coder": [("import json\n", "from eventql_tpu.core.errors"),
                    ("def encode_plan(", "def decode_plan(")],
-    # the device and the mesh are arguments; the metadata ops answer as a
-    # server without a metadata service
+    # the device and the mesh are arguments
     "server.native_tcp": [
         ("    def __init__(\n        self, table_service, host=", "    def start(self):"),
         ("    def _mesh_provider_for(", "    def _handle_partialaggr("),
         ("                # TCP-over-", "                partial = self._mesh_partial("),
-        ("    def _handle_meta(", "# -- client"),
     ],
     # the device is an argument; the mapreduce routes answer "not ported"
     "server.http_api": [
@@ -115,32 +114,32 @@ SERVING_COPIES = {
         ('            w(b"event: query_error\\ndata: ")', "    @staticmethod\n    def _sse_begin"),
         ("        return sse\n", "    def _alter_target(self):"),
     ],
-    # the coordinator over an explicit worker list alone: the partition
-    # metadata tier (routed and replicated inserts, per-partition jobs,
-    # failover, the per-host cap, DESCRIBE PARTITIONS) and the config
-    # directory need config/ and db/metadata_{file,service,transport}.py
-    "parallel.cluster": [
-        ("import struct\n", "\n\n# -- partial serialization"),
-        ("class ClusterTableProvider(TableProvider):", "    def _query(self, addr"),
-        ("        return [self.describe(n) for n in sorted(names)]\n", "    def drop_table("),
-        ("    def insert_json(", "    def insert("),
-        ("    def get_table_chunks(", "    # -- distributed execution"),
-        ("def cluster_provider_from_config(", None),
-    ],
-    # --device / --mesh_shards; no --standalone; the cluster registry, its
-    # services and their flags refused by name; the query cache without a
+    # the cluster provider, its partition metadata tier (routed and
+    # replicated inserts, per-partition jobs, failover, the per-host cap,
+    # DESCRIBE PARTITIONS) and cluster_provider_from_config over the
+    # config directory
+    "parallel.cluster": [],
+    # --device / --mesh_shards; no --standalone; the query cache without a
     # mapreduce cache
     "cli.evqld": [
         ('"""Server binary', "from __future__"),
-        ('    ap = argparse.ArgumentParser(prog="evqld"', '        "--statsd_addr"'),
-        ('    ap.add_argument(\n        "--partition_split_threshold_rows"',
-         "    host, _, port = args.listen_http"),
-        ("        statsd_agent = StatsdAgent(", "    client_auth = None"),
-        ("        client_auth = LegacyClientAuth(", "    # the primary port sniffs"),
-        ("    native = NativeTCPServer(", "    from eventql_tpu.server.listener import Listener"),
-        ("    server.port = listener.port", "    stop = []"),
-        ("        time.sleep(0.2)\n", "    if statsd_agent is not None:"),
+        ('    ap = argparse.ArgumentParser(prog="evqld"', '        "--config_dir",'),
+        ("        metadata_service = MetadataService(MetadataStore(meta_dir))\n",
+         "    server = EventQLServer("),
+        ("        client_auth=client_auth,\n", "    # the primary port sniffs"),
+        ("        query_cache=query_cache,\n", "    from eventql_tpu.server.listener import Listener"),
+        ('        f" native://{nhost}:{native.port}"', "    stop = []"),
     ],
+    # the cluster tier: DRAW charts, the config directory and ZooKeeper,
+    # the versioned partition metadata and its transport, the replication,
+    # leader, metadata replication, monitor and autosplit workers, rebalance
+    # and the server allocator
+    **{mod: [] for mod in (
+        "exec.chart_style", "exec.chart", "config.__init__", "config.config_directory",
+        "config.config_directory_zookeeper", "config.zookeeper", "config.process_config",
+        "db.metadata_file", "db.metadata_service", "db.metadata_transport",
+        "db.server_allocator", "db.replication", "db.rebalance", "db.leader",
+        "db.metadata_replication", "db.monitor", "db.autosplit")},
     # --device for the embedded engine
     "cli.console": [
         ("class LocalBackend:", "class HTTPBackend:"),
