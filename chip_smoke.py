@@ -130,7 +130,8 @@ Phases (any mismatch or exception ends the run with a non-zero code):
      just before it and read just after, each kernel's first call held
      against its plain version; warm ms (host clock, median of 3) beside
      phase 4's time for the bare query. (b) a cluster as its users deploy
-     it: the port's embedded ZooKeeper server in this process, replication
+     it: the port's ZooKeeper server as its CLI (``python -m
+     eventql_tpu_torch.cli.zkserver``) in a process, replication
      factor 2, three ``python -m eventql_tpu_torch.cli.evqld --zookeeper_addr
      ... --server_name nodeN --device cuda --datadir ...
      --partition_split_threshold_rows T`` processes; a table of phase 4's
@@ -143,15 +144,45 @@ Phases (any mismatch or exception ends the run with a non-zero code):
      creation); within a deadline every replica the metadata names holds,
      in its partition's keyrange, exactly numpy's rows; the headline GROUP
      BY, G1, a top-k, count(*) and a DRAW through node1 and node2 equal to
-     numpy (tolerance 0); then the node a query of the last partition
+     numpy (tolerance 0); ``evqlctl cluster-list`` and ``cluster-status``
+     show the three up, and a JavaScript MapReduce job (the headline's sum
+     and count per key) through DistributedMapReduceScheduler, its map
+     shards on the partitions' replicas, equals numpy; then the node a
+     query of the last partition
      reads first is SIGKILLed (node3 when the splits placed a partition on
      it first, else node1 or node2: killing a node that serves no
      partition first would test no failover): the registry and CLUSTER
      SHOW SERVERS report it down, and the same queries stay exact through
      a live node (failover to the other replica), with no failed shard on
-     an in-process coordinator. The partition plans are keyrange-scoped,
-     which every device route declines, so the nodes answer them on their
-     host engines. Every node process is killed on every exit path.
+     an in-process coordinator; evqlctl shows it down, and the MapReduce
+     job, its shards failing over to the other replica, equals numpy again.
+     The partition plans are keyrange-scoped, which every device route
+     declines, so the nodes answer them on their host engines. Every node
+     process and the ZooKeeper process are killed on every exit path.
+ 12. the tools on the card: (a) ``evqlbench.main(["--device", "cuda",
+     "--rows", 2^26, "-n", "5"])`` in this process (its synthetic table,
+     its default query the headline GROUP BY: the route counter up 6 and
+     B1 launched 6 times), its answer over the table rebuilt from the
+     tool's seed equal to numpy, then ``-t t=<file>.cst`` over a 2^22-row
+     cstable file the port's writer made, with the route that served it;
+     then phase 4's 2^26 rows in an in-memory TableService behind one port
+     on the card (as phase 10's) for (b) evqlslap (4 threads, unthrottled,
+     TOOLS_SLAP_S s each) on the headline (B1), topk_ts_desc (B1 + B3) and
+     G1 (H1): no error, the route counter up once a request, each answer
+     once more equal to numpy; then insert mode, count(*) equal to the
+     inserts made; (c) the C client (client/cclient.py): the headline, and
+     k_100000 in pages of TOOLS_ROWBUFLEN rows, equal to numpy; (d) the
+     port's libevql_server.so in this process (server.device=cuda, its
+     table service handed the table): the headline through the C client
+     equal to numpy, B1 launched; its C host program with
+     server.device=cuda as a process: "embedded server smoke OK"; (e) a
+     mysqldump of TOOLS_IMPORT_ROWS rows (an ``id`` key, k, v, w, ts)
+     imported by mysql2evql: the headline and G1 over it equal to numpy;
+     (g) a JavaScript MapReduce job over TOOLS_MR_ROWS rows through POST
+     /api/v1/mapreduce/execute: its pairs equal to numpy. Each step's
+     route counters and launch counts are read just before and just after
+     it; each kernel's first call in the phase is held against its plain
+     version.
 
 With EVQL_PARENT_JOIN_CU naming an earlier join.cu whose
 evql_dim_join_gid has this one's C interface (the argument types
@@ -164,12 +195,17 @@ limit, phase 11's charts and their launches, and the cluster tier: nodes, rows
 inserted and any cut, routed inserts a second, partitions at creation and after
 the splits and their placements, the replica pairs read back, the node killed,
 ms per query before and after the kill, seconds to the nodes' start, the first
-split, the read-back, "down" and the first exact answer after the kill), one {"kernels": [...]} and, as the last line,
+split, the read-back, "down" and the first exact answer after the kill), one
+{"tools": ...} (the card's name and power limit, each step's numbers, its launches
+and route counters, and phase 11's evqlctl and MapReduce), one {"kernels": [...]}
+and, as the last line,
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import contextlib
 import ctypes
 import inspect
+import io
 import json
 import os
 import random
@@ -177,22 +213,25 @@ import re
 import shutil
 import socket
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.parse
 import urllib.request
 import weakref
 
 import numpy as np
 import torch
 
-from eventql_tpu_torch.columnar import native
+from eventql_tpu_torch.cli import evqlbench, evqlctl, evqlslap, mysql2evql
+from eventql_tpu_torch.client import cclient
+from eventql_tpu_torch.columnar import cstable_writer, native
 from eventql_tpu_torch.columnar.providers import CSTableScanProvider
 from eventql_tpu_torch.config.config_directory import SERVER_DOWN, SERVER_UP, ConfigDirectory
 from eventql_tpu_torch.config.config_directory_zookeeper import reset_sessions
-from eventql_tpu_torch.config.zookeeper import ZooKeeperServer
 from eventql_tpu_torch.core.errors import RuntimeError_, SQLError
 from eventql_tpu_torch.core.types import SType
 from eventql_tpu_torch.db.lsm import DurableTableService
@@ -212,6 +251,8 @@ from eventql_tpu_torch.kernels import groupby_agg as ga
 from eventql_tpu_torch.kernels import hash_groupby as hg
 from eventql_tpu_torch.kernels import join as kj
 from eventql_tpu_torch.kernels import sort as ksort
+from eventql_tpu_torch.mapreduce.distributed import DistributedMapReduceScheduler
+from eventql_tpu_torch.native import _build as native_build
 from eventql_tpu_torch.parallel import cluster, distributed, multihost
 from eventql_tpu_torch.parallel.cluster import (
     ClusterTableProvider,
@@ -4398,12 +4439,13 @@ def phase_cluster(device):
     stored = stored_columns(cols)
     stored["id"] = np.arange(N, dtype=np.uint64)
     order = np.random.default_rng(12).permutation(N).astype(np.uint64)
-    zk = ZooKeeperServer().start()
-    zk_addr = f"{zk.address}/{CLUSTER_TIER_NAME}"
-    url = f"zk://{zk_addr}"
     tmp = tempfile.mkdtemp(prefix="evql_phase11_")
     nodes = _Nodes(tmp)
+    zk = _ZooKeeperProcess(tmp)
+    tools = {}
     try:
+        zk_addr = f"{zk.start()}/{CLUSTER_TIER_NAME}"
+        url = f"zk://{zk_addr}"
         cdir = ConfigDirectory(url)
         cdir.cluster_create(CLUSTER_TIER_NAME, replication_factor=CLUSTER_TIER_RF)
         # node1 first, so that it leads: the leader runs autosplit over
@@ -4457,6 +4499,10 @@ def phase_cluster(device):
         log(f"phase 11: first split {split_s:.1f} s after the inserts began; {len(parts)}"
             f" partitions; {pairs} (partition, replica) pairs equal to numpy"
             f" {readback_s:.1f} s after the inserts ended")
+        tools["evqlctl_before_kill"] = evqlctl_statuses(url, CLUSTER_TIER_NODES)
+        mr_want = mapreduce_expected(np.asarray([d.decode() for d in dictionary],
+                                                dtype=object)[stored["k"][ids]], stored["v"][ids])
+        tools["mapreduce_before_kill"] = distributed_mapreduce(url, mr_want)
 
         expected = cluster_expected(stored, dictionary, ids)
         before_ms = cluster_answers({"node1": p1, "node2": ports["node2"]}, expected)
@@ -4488,6 +4534,8 @@ def phase_cluster(device):
         finally:
             provider.close()
         check(failed == 0, f"phase 11: {failed} failed shards after {victim} was killed")
+        tools["evqlctl_after_kill"] = evqlctl_statuses(url, CLUSTER_TIER_NODES, victim)
+        tools["mapreduce_after_kill"] = distributed_mapreduce(url, mr_want)
         log(f"phase 11: {victim} (the first replica of {len(meta.entries)} partition(s)'"
             f" last) killed: down after {down_s:.3f} s, first exact answer through {via}"
             f" after {exact_s:.3f} s; the queries through {via} equal to numpy:"
@@ -4495,13 +4543,14 @@ def phase_cluster(device):
     except BaseException:
         for name in nodes.logs:
             log(f"phase 11: {name}'s output ends: {nodes.log_of(name)[-3000:]}")
+        log(f"phase 11: the ZooKeeper server's output ends: {zk.output()[-3000:]}")
         raise
     finally:
         nodes.stop_all()
-        zk.stop()
+        zk.kill()
         reset_sessions()
         shutil.rmtree(tmp, ignore_errors=True)
-    return dict(nodes=len(CLUSTER_TIER_NODES), replication_factor=CLUSTER_TIER_RF,
+    return tools, dict(nodes=len(CLUSTER_TIER_NODES), replication_factor=CLUSTER_TIER_RF,
                 rows=n, rows_wanted=N, cut=n < N, split_threshold_rows=CLUSTER_TIER_SPLIT_ROWS,
                 insert_s=insert_s, routed_inserts_per_s=n / insert_s,
                 partitions_at_creation=len(parts0), partitions=len(parts),
@@ -4510,6 +4559,598 @@ def phase_cluster(device):
                 placements=[e.servers for e in meta.entries], killed=victim, queried_after=via,
                 down_s=down_s, first_exact_after_kill_s=exact_s, failed_shards=failed,
                 phase_s=time.perf_counter() - t_phase)
+
+
+class _ZooKeeperProcess:
+    """Phase 11's ZooKeeper server as its users run it: ``python -m
+    eventql_tpu_torch.cli.zkserver`` in a process of its own, killed on
+    every exit path."""
+
+    def __init__(self, tmp):
+        self.log_path, self.proc = os.path.join(tmp, "zkserver.log"), None
+
+    def start(self):
+        """Starts it; returns its ``host:port`` once it says it listens."""
+        env = dict(os.environ, PYTHONPATH=REPO + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        with open(self.log_path, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "eventql_tpu_torch.cli.zkserver", "--listen",
+                 "127.0.0.1:0"], stdout=out, stderr=subprocess.STDOUT, cwd=REPO, env=env)
+        deadline = time.monotonic() + CLUSTER_TIER_START_S
+        while time.monotonic() < deadline:
+            m = re.search(r"zookeeper server listening on (\S+)", self.output())
+            if m:
+                return m.group(1)
+            check(self.proc.poll() is None, f"phase 11: zkserver exited: {self.output()[-2000:]}")
+            time.sleep(0.1)
+        raise AssertionError(f"phase 11: zkserver did not start: {self.output()[-2000:]}")
+
+    def output(self):
+        if not os.path.exists(self.log_path):
+            return ""
+        with open(self.log_path) as f:
+            return f.read()
+
+    def kill(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+        if self.proc is not None:
+            self.proc.wait(timeout=30)
+
+
+def _tool_output(main, argv):
+    """(return code, standard output) of a CLI's main run in this process."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue()
+
+
+def evqlctl_statuses(url, names, down=None):
+    """evqlctl cluster-list (the registry) and cluster-status (a ping of
+    each server) over the registry at ``url``: every member of ``names``
+    up, but ``down``, which both must show down."""
+    out = {}
+    for cmd in ("cluster-list", "cluster-status"):
+        rc, text = _tool_output(evqlctl.main, ["-C", url, cmd])
+        check(rc == 0, f"phase 11: evqlctl {cmd} returned {rc}")
+        status = {line.split()[0]: line.split()[1] for line in text.splitlines()[2:] if line}
+        want = {n: SERVER_DOWN if n == down else SERVER_UP for n in names}
+        check(status == want, f"phase 11: evqlctl {cmd} shows {status}, not {want}")
+        out[cmd] = status
+    log(f"phase 11: evqlctl cluster-list and cluster-status show {out['cluster-status']}")
+    return out
+
+
+# a JavaScript MapReduce job (mapreduce/js_runtime.py's EVQL API): the
+# headline GROUP BY's sum and count per key
+MR_PROGRAM = """
+var mapped = EVQL.mapTable({table: "TABLE", map_fn: function(row) {
+  var v = parseInt(row.v, 10);
+  return v < 800 ? [[row.k, v]] : [];
+}});
+var reduced = EVQL.reduce({sources: [mapped], shards: 4, reduce_fn: function(key, values) {
+  var s = 0, c = 0;
+  while (values.hasNext()) { s += parseInt(values.next(), 10); c += 1; }
+  return [[key, [s, c]]];
+}});
+EVQL.downloadResults([reduced]);
+"""
+
+
+def mapreduce_expected(keys, v):
+    """numpy's (key, [sum(v), count]) over the rows with v < 800."""
+    keep = v < 800
+    uniq, inv = np.unique(keys[keep], return_inverse=True)
+    sums = np.bincount(inv, weights=v[keep].astype(np.float64), minlength=len(uniq))
+    counts = np.bincount(inv, minlength=len(uniq))
+    return sorted((str(k), [int(s), int(c)]) for k, s, c in zip(uniq, sums, counts))
+
+
+def _pairs(results):
+    return sorted((k, json.loads(v)) for k, v in results)
+
+
+def distributed_mapreduce(url, want):
+    """MR_PROGRAM over the cluster's table t through
+    DistributedMapReduceScheduler: map shards on the partitions' replicas
+    (failover down each replica list), reduce shards on live members."""
+    provider = cluster_provider_from_config(url)
+    try:
+        sched = DistributedMapReduceScheduler(provider)
+        (results, logs), ms = _timed(lambda: sched.execute_script(MR_PROGRAM.replace("TABLE", "t")))
+    finally:
+        provider.close()
+    got = _pairs(results)
+    check(got == want, f"phase 11: the distributed MapReduce job's {len(got)} pairs differ from"
+                       f" numpy's {len(want)}: {got[:3]} / {want[:3]} ({logs[-3:]})")
+    log(f"phase 11: the distributed MapReduce job: {len(want)} pairs equal to numpy in"
+        f" {ms:.1f} ms, {sched.num_tasks_total} tasks")
+    return dict(ms=ms, pairs=len(want), tasks=sched.num_tasks_total, logs=len(logs))
+
+
+# -- phase 12: the tools on the card ----------------------------------------------------
+#
+# The port's other entry points, as their users run them, against phase 4's
+# table on the card: (a) evqlbench in process, over its own synthetic table
+# of N_ROWS rows (its default query is the headline GROUP BY: B1) and over a
+# cstable file through -t; then a server holding the table in an in-memory
+# TableService on the card (as phase 10's) for (b) evqlslap's query mode (4
+# threads, unthrottled) and insert mode over HTTP, (c) the C client library,
+# (d) the embedded C server API: the port's libevql_server.so loaded into this
+# process and handed the table, and its C host program in a process of its
+# own, (e) mysql2evql importing a mysqldump of the table's rows and (g)(i) a
+# JavaScript MapReduce job over HTTP. (f) zkserver and evqlctl, and (g)(ii)
+# the distributed MapReduce scheduler, run inside phase 11's cluster. Each
+# step's route counters and launch counts are read just before and just
+# after it; each kernel's first call in the phase is held against its plain
+# version.
+
+TOOLS_BENCH_ROUNDS = 5
+TOOLS_CST_ROWS = 1 << 22  # phase 8's size
+TOOLS_SLAP_THREADS = 4
+TOOLS_SLAP_S = 5.0
+TOOLS_SLAP_QUERIES = {  # query -> kernels a run launches
+    "headline": ("groupby_agg",),
+    "topk_ts_desc": ("groupby_agg", "extract_ge"),
+    "G1_min_max_mean": ("hash_groupby",),
+}
+TOOLS_ROWBUFLEN = 1024  # rows a page of the C client's k_100000 fetch
+# the cuts (PERF.md section 4): as many rows as about 30 s take, at the rates
+# the port showed on a CPU (mysql2evql about 38 000 rows a second into a
+# table of 200 000 rows, the JS interpreter's job about 21 000)
+TOOLS_IMPORT_ROWS = 1_000_000
+TOOLS_IMPORT_BATCH = 1024
+TOOLS_MR_ROWS = 1 << 19
+ROUTE_COUNTERS = ("FUSED_GROUPBY_COUNT", "GENERAL_GROUPBY_COUNT", "SCAN_TOPK_COUNT",
+                  "SCAN_ORDER_COUNT", "JOIN_GROUPBY_COUNT")
+
+
+def _on_the_card(arguments):
+    """Whether a call's arguments hold a CUDA tensor (the wrapper launches
+    its kernel on one; a call with none runs the plain version)."""
+    for v in arguments.values():
+        for t in (v if isinstance(v, (list, tuple)) else (v,)):
+            if isinstance(t, torch.Tensor) and t.is_cuda:
+                return True
+    return False
+
+
+class _FirstCalls(_RecordedCalls):
+    """_RecordedCalls that keeps only each kernel's first launching call,
+    under the label of the step that made it (a load generator's
+    thousands of calls would keep their tensors alive)."""
+
+    def __init__(self):
+        super().__init__()
+        self.first, self.label, self._lock = {}, None, threading.Lock()
+
+    def _recording(self, name, wrapper):
+        sig = inspect.signature(wrapper)
+
+        def call(*args, **kwargs):
+            if name not in self.first:
+                arguments = dict(sig.bind(*args, **kwargs).arguments)
+                if _on_the_card(arguments):
+                    with self._lock:
+                        self.first.setdefault(name, (self.label, arguments))
+            return wrapper(*args, **kwargs)
+
+        return call
+
+
+class _Steps:
+    """Phase 12's steps: each one's launch counts zeroed just before it and
+    read just after, and its route counters' rise. ``launching``: the
+    routes run on the card (the plain versions on the CPU launch nothing)."""
+
+    def __init__(self, rec, launching):
+        self.rec, self.launching = rec, launching
+        self.launches, self.routes, self.seconds = {}, {}, {}
+
+    @contextlib.contextmanager
+    def step(self, name):
+        self.rec.label = name
+        zero_launch_counts()
+        before = {c: getattr(device_exec, c) for c in ROUTE_COUNTERS}
+        t0 = time.perf_counter()
+        yield
+        self.seconds[name] = time.perf_counter() - t0
+        self.launches[name] = launch_counts()
+        self.routes[name] = {c: getattr(device_exec, c) - before[c] for c in ROUTE_COUNTERS}
+
+    def launched(self, name, kernels, what, times=None):
+        for k in kernels:
+            got = self.launches[name][k]
+            check(not self.launching or (got == times if times else got > 0),
+                  f"phase 12: {what}: {k} launched {got} times")
+
+
+def _bench_numbers(text):
+    best = re.search(r"best: ([\d.]+) ms  avg: ([\d.]+) ms", text)
+    rows = re.search(r"result rows: (\d+)", text)
+    thr = re.search(r"throughput: ([\d.]+) M input rows/s", text)
+    check(best is not None and rows is not None, f"phase 12: evqlbench printed {text!r}")
+    return dict(best_ms=float(best.group(1)), avg_ms=float(best.group(2)),
+                result_rows=int(rows.group(1)),
+                m_input_rows_per_s=float(thr.group(1)) if thr else None)
+
+
+def tools_bench(steps, dev, tmp):
+    """(a) evqlbench over its synthetic table (B1 six times: a warm-up and
+    TOOLS_BENCH_ROUNDS rounds), its answer over the same table rebuilt
+    from the tool's seed against numpy, then -t over a cstable file.
+    ``dev``: "cuda", or "cpu" for the kernels' plain versions."""
+    n, rounds = N_ROWS, TOOLS_BENCH_ROUNDS
+    with steps.step("evqlbench"):
+        rc, text = _tool_output(evqlbench.main, ["--device", dev, "--rows", str(n),
+                                                 "-n", str(rounds)])
+    check(rc == 0, f"phase 12: evqlbench returned {rc}")
+    check(steps.routes["evqlbench"]["FUSED_GROUPBY_COUNT"] == rounds + 1,
+          f"phase 12: evqlbench: {steps.routes['evqlbench']}")
+    steps.launched("evqlbench", ("groupby_agg",), "evqlbench", times=rounds + 1)
+    out = dict(rows=n, rounds=rounds, **_bench_numbers(text))
+    with steps.step("evqlbench_answer"):
+        rng = np.random.default_rng(42)  # the tool's table
+        k = rng.integers(0, 1024, n).astype(np.uint64)
+        v = rng.integers(0, 1000, n).astype(np.uint64)
+        p = RelationTableProvider()
+        ones = np.ones(n, bool)
+        p.add_table("benchmark", Relation(
+            ["k", "v"], [Column(SType.UINT64, k, ones), Column(SType.UINT64, v, ones)], n))
+        rt = Runtime(device=dev)
+        rows = run_query(rt, p, "select k, sum(v), count(1) from benchmark where v < 800"
+                                " group by k;").rows
+    occ, cnt, (sv,) = _bincounts(k.astype(np.int64), 1024, v < 800, v)
+    check(sorted(rows) == sorted([str(o), str(int(s)), str(int(c))]
+                                 for o, s, c in zip(occ, sv, cnt))
+          and out["result_rows"] == len(occ), "phase 12: evqlbench's answer differs from numpy")
+    del p, k, v, rows
+    log(f"phase 12: evqlbench --device {dev} --rows {n} -n {rounds}: best {out['best_ms']} ms,"
+        f" avg {out['avg_ms']} ms, {out['m_input_rows_per_s']} M input rows/s; B1 launched"
+        f" {rounds + 1} times; its answer equal to numpy")
+
+    m = TOOLS_CST_ROWS
+    rng = np.random.default_rng(43)
+    k = rng.integers(0, 1024, m).astype(np.uint64)
+    v = rng.integers(0, 1000, m).astype(np.uint64)
+    path = os.path.join(tmp, "bench.cst")
+    ones = np.ones(m, bool)
+    cstable_writer.write_cstable(path, Relation(
+        ["k", "v"], [Column(SType.UINT64, k, ones), Column(SType.UINT64, v, ones)], m))
+    cst = {}
+    for name, query, want in (
+            ("count", None, 1),
+            ("group_by", "select k, sum(v), count(1) from t where v < 800 group by k;",
+             len(np.unique(k[v < 800])))):
+        step = f"evqlbench_cst_{name}"
+        with steps.step(step):
+            rc, text = _tool_output(evqlbench.main, ["--device", dev, "-t", f"t={path}", "-n",
+                                                     "1"] + (["-q", query] if query else []))
+        nums = _bench_numbers(text)
+        check(rc == 0 and nums["result_rows"] == want,
+              f"phase 12: evqlbench -t {step}: {text!r}")
+        routes = {c: d for c, d in steps.routes[step].items() if d}
+        cst[name] = dict(query=query or "select count(1) from t;", routes=routes, **nums)
+        log(f"phase 12: evqlbench -t t=<{m} rows>.cst {cst[name]['query']!r}: best"
+            f" {nums['best_ms']} ms, served by {routes or 'no device route'}")
+    out["cstable"] = dict(rows=m, **cst)
+    return out
+
+
+class _SlapTally(evqlslap.RollingStats):
+    """evqlslap's RollingStats keeping the totals its windows reset."""
+
+    made = []
+
+    def __init__(self):
+        super().__init__()
+        self.total = dict(count=0, errors=0, latency_s=0.0, max_latency_s=0.0)
+        _SlapTally.made.append(self)
+
+    def record(self, latency, error):
+        super().record(latency, error)
+        with self.lock:
+            t = self.total
+            t["count"] += 1
+            t["errors"] += int(error)
+            t["latency_s"] += latency
+            t["max_latency_s"] = max(t["max_latency_s"], latency)
+
+
+def _slap(argv):
+    """evqlslap's main in this process; (its totals, its printed counts)."""
+    _SlapTally.made.clear()
+    evqlslap.RollingStats = _SlapTally
+    try:
+        rc, text = _tool_output(evqlslap.main, argv)
+    finally:
+        evqlslap.RollingStats = _SlapTally.__bases__[0]
+    check(rc == 0 and len(_SlapTally.made) == 1, f"phase 12: evqlslap returned {rc}")
+    return _SlapTally.made[0].total, [int(x) for x in re.findall(r"rps: (\d+)", text)]
+
+
+def tools_slap(steps, port, qs, phase10):
+    """(b) evqlslap: each query of TOOLS_SLAP_QUERIES for TOOLS_SLAP_S s
+    on TOOLS_SLAP_THREADS threads, then once more against numpy; then
+    insert mode into a small table, whose count(*) equals the inserts the
+    tool made."""
+    out = {}
+    for name, kernels in TOOLS_SLAP_QUERIES.items():
+        _path, sql, expected, as_set, counter = qs[name]
+        step = f"evqlslap_{name}"
+        with steps.step(step):
+            t0 = time.perf_counter()
+            total, printed = _slap(["-p", str(port), "-t", str(TOOLS_SLAP_THREADS), "-d",
+                                    str(TOOLS_SLAP_S), "-q", sql])
+            wall = time.perf_counter() - t0
+        check(total["errors"] == 0 and total["count"] > 0,
+              f"phase 12: evqlslap {name}: {total}")
+        check(steps.routes[step][counter] == total["count"],
+              f"phase 12: evqlslap {name}: {counter} rose {steps.routes[step][counter]},"
+              f" not once a request ({total['count']})")
+        steps.launched(step, kernels, f"evqlslap {name}")
+        rows, _nbytes = http_sql(port, sql)
+        check(_same(rows, expected, as_set), f"phase 12: {name} after evqlslap differs from numpy")
+        out[name] = dict(requests=total["count"], requests_per_s=total["count"] / wall,
+                         mean_latency_ms=total["latency_s"] / total["count"] * 1e3,
+                         max_latency_ms=total["max_latency_s"] * 1e3, printed=printed,
+                         single_client_http_ms=phase10[name]["http_ms"])
+        log(f"phase 12: evqlslap {name}: {total['count']} requests, 0 errors,"
+            f" {out[name]['requests_per_s']:.2f} a second, latency mean"
+            f" {out[name]['mean_latency_ms']:.3f} ms max {out[name]['max_latency_ms']:.3f} ms"
+            f" (phase 10, one client: {phase10[name]['http_ms']:.3f} ms)")
+    http_sql(port, _create_sql("slap", [("id", SType.UINT64), ("value", SType.UINT64)], pk="id"))
+    with steps.step("evqlslap_insert"):
+        total, printed = _slap(["-p", str(port), "-m", "insert", "--table", "slap", "-t",
+                                str(TOOLS_SLAP_THREADS), "-d", str(TOOLS_SLAP_S)])
+    rows, _nbytes = http_sql(port, "select count(*) from slap;")
+    made = total["count"] - total["errors"]
+    check(total["errors"] == 0 and rows == [[str(made)]] and sum(printed) <= made,
+          f"phase 12: evqlslap insert: {total}, count(*) {rows}")
+    out["insert"] = dict(inserts=made, inserts_per_s=made / TOOLS_SLAP_S,
+                         printed=sum(printed), mean_latency_ms=total["latency_s"] / made * 1e3)
+    log(f"phase 12: evqlslap insert: {made} inserts ({sum(printed)} in its printed windows),"
+        f" count(*) equal")
+    return out
+
+
+def _cclient_setopt(lib):
+    lib.evql_client_setopt.restype = ctypes.c_int
+    lib.evql_client_setopt.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_char_p,
+                                       ctypes.c_size_t, ctypes.c_long]
+    return lib.evql_client_setopt
+
+
+def tools_cclient(steps, port, qs):
+    """(c) the C client: the headline, and k_100000 fetched in pages of
+    TOOLS_ROWBUFLEN rows."""
+    out = {}
+    c = cclient.CClient("127.0.0.1", port)
+    try:
+        for name, rowbuf in (("headline", None), ("k_100000", TOOLS_ROWBUFLEN)):
+            _path, sql, expected, as_set, counter = qs[name]
+            if rowbuf:
+                check(_cclient_setopt(c._lib)(c._c, 2, struct.pack("<Q", rowbuf), 8, 0) == 0,
+                      "phase 12: evql_client_setopt(ROWBUFLEN)")
+            step = f"cclient_{name}"
+            with steps.step(step):
+                ((_cols, rows),), ms = _timed(lambda: c.query(sql))
+            check(_same(rows, expected, as_set), f"phase 12: {name} through the C client differs"
+                                                 " from numpy")
+            check(steps.routes[step][counter] == 1, f"phase 12: C client {name}: {counter}")
+            steps.launched(step, ("groupby_agg",), f"C client {name}")
+            out[name] = dict(rows=len(rows), ms=ms, rows_a_page=rowbuf,
+                             pages=-(-len(rows) // rowbuf) if rowbuf else 1)
+            log(f"phase 12: C client {name}: {len(rows)} rows equal to numpy in {ms:.1f} ms"
+                + (f" ({out[name]['pages']} pages of {rowbuf})" if rowbuf else ""))
+    finally:
+        c.close()
+    return out
+
+
+def _server_lib():
+    lib = ctypes.CDLL(native_build.path(native_build.SERVER_LIB))
+    lib.evql_server_init.restype = ctypes.c_void_p
+    lib.evql_server_init.argtypes = [ctypes.c_void_p]
+    for name in ("evql_server_start", "evql_server_getport"):
+        getattr(lib, name).restype = ctypes.c_int
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
+    lib.evql_server_listen.restype = ctypes.c_int
+    lib.evql_server_listen.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    for name in ("evql_server_geterror", "evql_server_getconf"):
+        getattr(lib, name).restype = ctypes.c_char_p
+    lib.evql_server_geterror.argtypes = [ctypes.c_void_p]
+    lib.evql_server_getconf.argtypes = [ctypes.c_void_p, ctypes.c_char_p]
+    for name in ("evql_server_shutdown", "evql_server_free"):
+        getattr(lib, name).restype = None
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
+    clib = cclient._load()
+    clib.evql_conf_init.restype = ctypes.c_void_p
+    clib.evql_conf_set.restype = ctypes.c_int
+    clib.evql_conf_set.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_char_p]
+    clib.evql_conf_free.restype = None
+    clib.evql_conf_free.argtypes = [ctypes.c_void_p]
+    return lib, clib
+
+
+def tools_embedded(steps, dev, svc, qs):
+    """(d)(i) the port's libevql_server.so in this process: server.device =
+    ``dev``, its table service handed the table, the headline through the C
+    client; (ii) its C host program with server.device=``dev``."""
+    lib, clib = _server_lib()
+    conf = clib.evql_conf_init()
+    for key, value in (("server.listen", "127.0.0.1:0"), ("server.device", dev)):
+        check(clib.evql_conf_set(conf, key.encode(), value.encode()) == 0, "phase 12: conf")
+    server = lib.evql_server_init(conf)
+    kill_r, kill_w = os.pipe()
+    listener = None
+    try:
+        check(lib.evql_server_start(server) == 0,
+              f"phase 12: evql_server_start: {lib.evql_server_geterror(server)}")
+        embedded = ctypes.cast(server, ctypes.POINTER(ctypes.py_object))[0]
+        check(embedded.http.runtime.device.type == dev,
+              "phase 12: the embedded server's device")
+        embedded.table_service.tables["t"] = svc.tables["t"]
+        embedded.table_service.bump_schema_version()
+        listener = threading.Thread(target=lib.evql_server_listen, args=(server, kill_r),
+                                    daemon=True)
+        listener.start()
+        _until("the embedded server to listen", lambda: embedded.listener is not None)
+        _path, sql, expected, as_set, counter = qs["headline"]
+        c = cclient.CClient("127.0.0.1", embedded.listener.port)
+        try:
+            with steps.step("embedded_in_process"):
+                ((_cols, rows),), ms = _timed(lambda: c.query(sql))
+        finally:
+            c.close()
+        check(_same(rows, expected, as_set), "phase 12: the embedded server's headline differs")
+        check(steps.routes["embedded_in_process"][counter] == 1, "phase 12: embedded route")
+        steps.launched("embedded_in_process", ("groupby_agg",), "the embedded server")
+        os.write(kill_w, b"x")
+        listener.join(timeout=60)
+        check(not listener.is_alive(), "phase 12: evql_server_listen did not return")
+    finally:
+        if listener is not None and listener.is_alive():
+            os.write(kill_w, b"x")
+            listener.join(timeout=60)
+        lib.evql_server_shutdown(server)
+        lib.evql_server_free(server)
+        clib.evql_conf_free(conf)
+        os.close(kill_r)
+        os.close(kill_w)
+    log(f"phase 12: libevql_server.so in process (server.device={dev}): the headline through"
+        f" the C client equal to numpy in {ms:.1f} ms, B1 launched")
+    (host, host_s) = _timed(lambda: subprocess.run(
+        [native_build.path(native_build.SMOKE_BIN), f"server.device={dev}"], capture_output=True,
+        text=True, timeout=600, env=native_build.host_env()))
+    check(host.returncode == 0 and "embedded server smoke OK" in host.stdout,
+          f"phase 12: the C host: {host.returncode} {host.stdout[-1000:]} {host.stderr[-2000:]}")
+    log(f"phase 12: the C host embedded_server_smoke server.device={dev}: {host.stdout.strip()}"
+        f" in {host_s / 1e3:.1f} s")
+    return dict(in_process_ms=ms, c_host_s=host_s / 1e3, c_host=host.stdout.strip())
+
+
+def _mysqldump(path, stored, dictionary, m):
+    """A mysqldump of rows [0, m) of the table: an ``id`` primary key and
+    phase 4's columns k, v, w, ts, in extended INSERTs of 1000 rows."""
+    names = np.asarray([d.decode() for d in dictionary], dtype=object)
+    with open(path, "w") as f:
+        f.write("CREATE TABLE `imp` (\n  `id` bigint(20) unsigned NOT NULL,\n"
+                "  `k` varchar(16) NOT NULL,\n  `v` bigint(20) unsigned NOT NULL,\n"
+                "  `w` bigint(20) unsigned NOT NULL,\n  `ts` bigint(20) unsigned NOT NULL,\n"
+                "  PRIMARY KEY (`id`)\n) ENGINE=InnoDB DEFAULT CHARSET=utf8;\n")
+        k, v, w, ts = (stored[c][:m] for c in ("k", "v", "w", "ts"))
+        for a in range(0, m, 1000):
+            b = min(m, a + 1000)
+            f.write("INSERT INTO `imp` VALUES " + ",".join(
+                f"({i},'{names[k[i]]}',{v[i]},{w[i]},{ts[i]})" for i in range(a, b)) + ";\n")
+
+
+def tools_mysql2evql(steps, port, stored, dictionary, tmp):
+    """(e) mysql2evql --source_file of TOOLS_IMPORT_ROWS rows into the
+    server; the headline and G1 over the imported table against numpy."""
+    m = TOOLS_IMPORT_ROWS
+    path = os.path.join(tmp, "dump.sql")
+    _mysqldump(path, stored, dictionary, m)
+    with steps.step("mysql2evql"):
+        t0 = time.perf_counter()
+        rc, text = _tool_output(mysql2evql.main, [
+            "--source_file", path, "--source_table", "imp", "--port", str(port),
+            "--batch_size", str(TOOLS_IMPORT_BATCH)])
+        import_s = time.perf_counter() - t0
+    check(rc == 0 and f"imported {m} rows into imp" in text, f"phase 12: mysql2evql: {text!r}")
+    sub = {c: stored[c][:m] for c in stored}
+    want = {q[0]: (q[1], q[4], True) for q in queries(sub, dictionary, cat_lo=0)}
+    want.update({name: (sql, rows, False)
+                 for name, sql, rows in general_queries(sub, dictionary, m, cat_lo=0)})
+    out = dict(rows=m, rows_wanted="about 30 s of import", import_s=import_s,
+               rows_per_s=m / import_s, queries={})
+    for name, counter, kernel in (("headline", "FUSED_GROUPBY_COUNT", "groupby_agg"),
+                                  ("G1_min_max_mean", "GENERAL_GROUPBY_COUNT", "hash_groupby")):
+        sql, expected, as_set = want[name]
+        step = f"mysql2evql_{name}"
+        with steps.step(step):
+            (rows, _b), ms = _timed(lambda: http_sql(port, sql.replace(" from t ", " from imp ")))
+        check(_same(rows, expected, as_set), f"phase 12: {name} over the import differs")
+        check(steps.routes[step][counter] == 1, f"phase 12: {name} over the import: {counter}")
+        steps.launched(step, (kernel,), f"{name} over the import")
+        out["queries"][name] = dict(ms=ms, rows=len(rows))
+    log(f"phase 12: mysql2evql imported {m} rows in {import_s:.1f} s"
+        f" ({m / import_s:.0f} rows a second); the headline and G1 over them equal to numpy")
+    return out
+
+
+def tools_mapreduce(steps, port, svc, stored, dictionary):
+    """(g)(i) MR_PROGRAM over TOOLS_MR_ROWS rows of the table, POSTed to
+    /api/v1/mapreduce/execute: its pairs against numpy."""
+    m = TOOLS_MR_ROWS
+    host = Runtime(device=None)
+    host.build_query_plan(host.new_transaction(svc), _create_sql(
+        "mr", [("k", SType.STRING), ("v", SType.UINT64)])).execute(0)
+    svc.tables["mr"].insert_batch(_batch([("k", SType.STRING), ("v", SType.UINT64)], stored,
+                                         0, m, {"k": dictionary}))
+    with steps.step("mapreduce"):
+        (status, body), ms = _timed(lambda: _http_post(
+            port, "/api/v1/mapreduce/execute", MR_PROGRAM.replace("TABLE", "mr").encode(),
+            timeout=900))
+    text = body.decode()
+    results = []
+    for block in text.split("\n\n"):
+        lines = block.strip().split("\n")
+        if lines[0] == "event: result":
+            r = json.loads(urllib.parse.unquote(lines[1][len("data: "):]))
+            results.append((r["key"], r["value"]))
+    want = mapreduce_expected(np.asarray([d.decode() for d in dictionary],
+                                         dtype=object)[stored["k"][:m]], stored["v"][:m])
+    check(status == 200 and "event: job_finished" in text and _pairs(results) == want,
+          f"phase 12: the MapReduce job's pairs differ from numpy: {text[-2000:]}")
+    log(f"phase 12: a JavaScript MapReduce job over {m} rows: {len(want)} pairs equal to numpy"
+        f" in {ms / 1e3:.1f} s ({m / ms * 1e3:.0f} rows a second)")
+    return dict(rows=m, rows_wanted="about 30 s of the job", ms=ms, rows_per_s=m / ms * 1e3,
+                pairs=len(want))
+
+
+def phase_tools(device, tables, phase10, cluster_tools):
+    """Phase 12 with the tools' routes on ``device`` ("cuda"; "cpu" runs the
+    kernels' plain versions). Returns the {"tools": ...} numbers, the
+    launches by step and each kernel's first call in the phase."""
+    t_phase = time.perf_counter()
+    dev = "cuda" if torch.device(device).type == "cuda" else "cpu"
+    cols, dictionary = tables["cols"], tables["dictionary"]
+    n = len(cols["k"])
+    tmp = tempfile.mkdtemp(prefix="evql_phase12_")
+    rec = _FirstCalls()
+    steps = _Steps(rec, dev == "cuda")
+    out = {}
+    try:
+        with rec:
+            out["evqlbench"] = tools_bench(steps, dev, tmp)
+            stored = stored_columns(cols)
+            qs = serving_queries(tables, dict(cols, cat=cols["cat"] - CAT_LO), n)
+            svc = serving_service(stored, dictionary, tables["dims"], 0, n)
+            http = EventQLServer(svc, device=dev).start(bind=False)
+            native_srv = NativeTCPServer(svc, device=dev)
+            lis = Listener(http, native_srv, port=0).start()
+            try:
+                out["evqlslap"] = tools_slap(steps, lis.port, qs, phase10)
+                out["cclient"] = tools_cclient(steps, lis.port, qs)
+                out["embedded"] = tools_embedded(steps, dev, svc, qs)
+                out["mysql2evql"] = tools_mysql2evql(steps, lis.port, stored, dictionary, tmp)
+                out["mapreduce"] = tools_mapreduce(steps, lis.port, svc, stored, dictionary)
+            finally:
+                lis.stop()
+                http.stop()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for kernel in ("groupby_agg", "extract_ge", "hash_groupby"):
+        check(not steps.launching or sum(c[kernel] for c in steps.launches.values()) > 0,
+              f"phase 12: {kernel} not launched")
+    out.update(cluster=cluster_tools, launches=steps.launches,
+               routes={s: {c: d for c, d in r.items() if d} for s, r in steps.routes.items()},
+               step_s=steps.seconds, phase_s=time.perf_counter() - t_phase)
+    log(f"phase 12: the tools on the card in {out['phase_s']:.1f} s")
+    return out, steps.launches, rec.first
 
 
 _REPLACES = {
@@ -4581,10 +5222,14 @@ def main():
     del serving_first, cluster_first
     charts, chart_launches, chart_first = phase_charts(
         device, serving_tables["cols"], serving_tables["dictionary"], run["e2e"])
-    del serving_tables
     chart_shapes = mesh_shapes(chart_first, "phase 11", "chart")
     del chart_first
-    tier = phase_cluster(device)
+    cluster_tools, tier = phase_cluster(device)
+    tools, tools_launches, tools_first = phase_tools(device, serving_tables, serving["queries"],
+                                                     cluster_tools)
+    del serving_tables
+    tools_shapes = mesh_shapes(tools_first, "phase 12", "tools")
+    del tools_first
     kernels = []
     for name, t in times.items():
         source, replaces, entry = _REPLACES[name]
@@ -4595,6 +5240,7 @@ def main():
         launches_by_path["storage"] = sum(c[name] for c in storage_launches.values())
         launches_by_path["serving"] = sum(c[name] for c in serving["launches"].values())
         launches_by_path["charts"] = sum(c[name] for c in chart_launches.values())
+        launches_by_path["tools"] = sum(c[name] for c in tools_launches.values())
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -4618,6 +5264,7 @@ def main():
             "serving_shape": serving_shapes.get(name),
             "cluster_shape": cluster_shapes.get(name),
             "chart_shape": chart_shapes.get(name),
+            "tools_shape": tools_shapes.get(name),
         })
         # probe_join_gid: its table-build kernels alone; dim_join_gid: one
         # row (its table build) and the earlier kernel; hash_groupby: its
@@ -4642,6 +5289,7 @@ def main():
     log(json.dumps({"serving": serving}))
     log(json.dumps({"cluster": dict(card=smi, charts=charts, chart_launches=chart_launches,
                                     tier=tier)}))
+    log(json.dumps({"tools": dict(card=smi, **tools)}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -140,11 +140,13 @@ def main(argv=None):
         meta_dir = args.datadir or tempfile.mkdtemp(prefix="evql_meta_")
         metadata_service = MetadataService(MetadataStore(meta_dir))
 
+    mr_cachedir = None
     query_cache = None
     if args.datadir:
+        mr_cachedir = os.path.join(args.datadir, "cache")
         from eventql_tpu_torch.exec.query_cache import QueryCache
 
-        query_cache = QueryCache(os.path.join(args.datadir, "cache"))
+        query_cache = QueryCache(mr_cachedir)
 
     server = EventQLServer(
         table_service=table_service,
@@ -152,6 +154,7 @@ def main(argv=None):
         port=port,
         query_provider_factory=query_provider_factory,
         client_auth=client_auth,
+        mr_cachedir=mr_cachedir,
         device=args.device,
     )
     # the primary port sniffs the first byte and serves BOTH protocols

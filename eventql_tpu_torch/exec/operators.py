@@ -17,9 +17,7 @@ repeated GROUP BY over an immutable table file before any route, and
 nested or WITHIN RECORD scans go through columnar/nested_scan.py. A
 cluster provider (parallel/cluster.py) ships a GROUP BY's partial plan
 and an ORDER BY ... LIMIT to its worker servers before any other route,
-and pulls the rows of every other plan from them. DRAW charts are not
-ported yet and raise RuntimeError_ naming what is missing instead of
-being silently skipped.
+and pulls the rows of every other plan from them.
 """
 
 from __future__ import annotations
@@ -168,10 +166,6 @@ def _exec_ddl(node, txn) -> Relation:
 # ---------------------------------------------------------------------------
 # scan
 # ---------------------------------------------------------------------------
-
-
-def _not_ported(what: str):
-    return RuntimeError_(f"not ported to eventql_tpu_torch yet: {what}")
 
 
 def _exec_seqscan(node: qn.SequentialScanNode, txn) -> Relation:

@@ -15,8 +15,9 @@ Routes:
   POST     /api/v1/tables/drop   {table}
   GET/POST /api/v1/tables/describe?table=t
   POST     /api/v1/tables/add_field / remove_field
-  POST     /api/v1/mapreduce/...  (mapreduce/ is not ported to
-                                 eventql_tpu_torch yet: 500 + error)
+  POST     /api/v1/mapreduce/execute (JSON spec or JS program → SSE)
+  POST     /api/v1/mapreduce/tasks/{map_partition,reduce,save_to_table}
+  GET      /api/v1/mapreduce/result/<id>[?sample=mod:idx]
   GET      /api/v1/auth/info
   GET      /eventql/stats
 """
@@ -62,6 +63,7 @@ class EventQLServer:
         port=9175,
         query_provider_factory=None,
         client_auth=None,
+        mr_cachedir=None,
         device="cuda",
     ):
         """``device``: where the queries' routes run ("cuda", which
@@ -71,6 +73,9 @@ class EventQLServer:
 
         self.client_auth = client_auth or TrustClientAuth()
         self.table_service = table_service or TableService()
+        # MapReduce result cache (reference: cachedir mr-shard-*.sst)
+        self.mr_cachedir = mr_cachedir
+        self._mr_service = None
         # queries may run against a different provider than inserts —
         # cluster coordinators fan SQL out while writes stay local
         self.query_provider_factory = (
@@ -186,10 +191,18 @@ class EventQLServer:
                 return self._handle_drop(h, payload)
             if path == "/api/v1/tables/describe":
                 return self._handle_describe(h, params, payload)
-            if path.startswith("/api/v1/mapreduce/"):
-                from eventql_tpu_torch.exec.operators import _not_ported
-
-                raise _not_ported("mapreduce")
+            if path == "/api/v1/mapreduce/execute":
+                return self._handle_mapreduce(h, payload)
+            if path == "/api/v1/mapreduce/tasks/map_partition":
+                return self._handle_mr_map_partition(h)
+            if path == "/api/v1/mapreduce/tasks/reduce":
+                return self._handle_mr_reduce(h)
+            if path == "/api/v1/mapreduce/tasks/save_to_table":
+                return self._handle_mr_save_to_table(h)
+            if path.startswith("/api/v1/mapreduce/result/"):
+                return self._handle_mr_result(
+                    h, path[len("/api/v1/mapreduce/result/"):], params
+                )
             if path == "/api/v1/auth/info":
                 return self._json(h, 200, {"valid": True, "namespaces": []})
             if path == "/eventql/stats":
@@ -404,6 +417,83 @@ class EventQLServer:
             w(json.dumps({"error": e.message}).encode())
             w(b"\n\n")
 
+    def _handle_mapreduce(self, h, payload):
+        # reference: transport/http/mapreduce_servlet.cc — job submit,
+        # results streamed back. Two body shapes: a JSON task spec
+        # (our driver API) → JSON response, or a JavaScript job program
+        # (the reference's executeMapReduceScript, :340-460) → SSE
+        # stream with job_started/result/log/job_finished events.
+        # In a cluster, map/reduce shards execute on the nodes owning
+        # the partitions (mapreduce/distributed.py); standalone runs
+        # in-process.
+        mr = self._mapreduce_service()
+        provider = self.query_provider_factory()
+        if getattr(provider, "cdir", None) is not None:
+            from eventql_tpu_torch.mapreduce.distributed import (
+                DistributedMapReduceScheduler,
+            )
+
+            mr = DistributedMapReduceScheduler(provider)
+        if isinstance(payload, dict) and payload.get("jobs"):
+            outputs = mr.execute(payload)
+            return self._json(
+                h,
+                200,
+                {
+                    "results": [
+                        [{"key": k, "value": v} for k, v in out]
+                        for out in outputs
+                    ]
+                },
+            )
+
+        program = getattr(h, "raw_body", b"").decode("utf-8", "replace")
+        if not program.strip():
+            return self._json(h, 400, {"error": "empty mapreduce program"})
+
+        from urllib.parse import quote
+
+        sse = self._sse_begin(h)
+        sse("job_started", "{}")
+        try:
+            results, logs = mr.execute_script(program)
+        except Exception as e:
+            sse("error", quote(str(e)))
+            return
+        for line in logs:
+            sse("log", quote(line))
+        for k, v in results:
+            if k == "":
+                # raw output (serialize_fn / writeToOutput)
+                sse("result", quote(v))
+            else:
+                sse("result",
+                    quote(json.dumps({"key": k, "value": v})))
+        sse("job_finished",
+            json.dumps({"status": "success",
+                        "num_tasks_total": len(results),
+                        "num_tasks_completed": len(results)}))
+
+    # -- distributed MapReduce task RPCs ---------------------------------
+    # (reference: transport/http/mapreduce_servlet.cc:65-90 routes;
+    # bodies are urlencoded parameter lists, responses are SSE streams
+    # carrying result_id / log / error events)
+    def _mapreduce_service(self):
+        if getattr(self, "_mr_service", None) is None:
+            from eventql_tpu_torch.mapreduce.service import MapReduceService
+
+            self._mr_service = MapReduceService(
+                self.table_service,
+                cachedir=self.mr_cachedir,
+                save_target_factory=self._tables_provider,
+            )
+        return self._mr_service
+
+    @staticmethod
+    def _body_params(h):
+        raw = getattr(h, "raw_body", b"").decode("utf-8", "replace")
+        return parse_qs(raw, keep_blank_values=True)
+
     @staticmethod
     def _sse_begin(h):
         h.send_response(200)
@@ -416,6 +506,134 @@ class EventQLServer:
             h.wfile.flush()
 
         return sse
+
+    def _partition_keyrange(self, table: str, partition_id: str):
+        """partition id → (partition_key_column, begin, end) scan bound
+        via the cluster metadata; None when unpartitioned (standalone)."""
+        provider = self.query_provider_factory()
+        meta_fn = getattr(provider, "_table_metadata", None)
+        if meta_fn is None:
+            return None
+        meta = meta_fn(table)
+        if meta is None:
+            return None
+        begin, end = meta.keyrange(partition_id)
+        return (meta.partition_key, begin, end)
+
+    def _handle_mr_map_partition(self, h):
+        # reference: mapreduce_servlet.cc:102-225 executeMapPartitionTask
+        from urllib.parse import unquote
+
+        params = self._body_params(h)
+
+        def p(name, default=""):
+            return params.get(name, [default])[0]
+
+        for required in ("table", "partition", "map_function"):
+            if not p(required):
+                return self._text(
+                    h, 400, f"missing ?{required}=... parameter"
+                )
+        table = p("table")
+        partition = p("partition")
+        required_columns = [
+            c for c in p("required_columns").split(",") if c
+        ]
+        cache_only = bool(p("cache_only"))
+        mr = self._mapreduce_service()
+        try:
+            keyrange = self._partition_keyrange(table, partition)
+            result_id = mr.map_partition(
+                table,
+                partition,
+                p("map_function"),
+                p("globals"),
+                p("params"),
+                required_columns,
+                cache_only=cache_only,
+                keyrange=keyrange,
+            )
+        except Exception as e:  # noqa: BLE001 — surface as SSE error
+            if cache_only:
+                h.send_response(204)
+                h.end_headers()
+                return
+            sse = self._sse_begin(h)
+            sse("error", str(e))
+            return
+        if cache_only and result_id is None:
+            # cache miss (reference: 204 No Content, servlet :175-180)
+            h.send_response(204)
+            h.end_headers()
+            return
+        sse = self._sse_begin(h)
+        sse("result_id", result_id or "")
+
+    def _handle_mr_reduce(self, h):
+        # reference: mapreduce_servlet.cc:227-300 executeReduceTask
+        params = self._body_params(h)
+
+        def p(name, default=""):
+            return params.get(name, [default])[0]
+
+        if not p("reduce_fn"):
+            return self._text(h, 400, "missing ?reduce_fn=... parameter")
+        input_tables = params.get("input_table", [])
+        mr = self._mapreduce_service()
+        sse = self._sse_begin(h)
+        try:
+            result_id = mr.reduce_tables(
+                input_tables, p("reduce_fn"), p("globals"), p("params")
+            )
+        except Exception as e:  # noqa: BLE001 — surface as SSE error
+            sse("error", str(e))
+            return
+        sse("result_id", result_id or "")
+
+    def _handle_mr_save_to_table(self, h):
+        # reference: mapreduce_servlet.cc:302-330 executeSaveToTableTask
+        params = self._body_params(h)
+
+        def p(name, default=""):
+            return params.get(name, [default])[0]
+
+        if not p("result_id"):
+            return self._text(h, 400, "missing ?result_id=... parameter")
+        if not p("table_name"):
+            return self._text(h, 400, "missing ?table_name=... parameter")
+        saved = self._mapreduce_service().save_result_to_table(
+            p("table_name"), p("result_id")
+        )
+        h.send_response(201 if saved else 204)
+        h.end_headers()
+
+    def _handle_mr_result(self, h, result_id, params):
+        # reference: mapreduce_servlet.cc:459-540 fetchResult — binary
+        # framed [u32 klen][u32 vlen][key][val]... [0][0] octet stream,
+        # optional ?sample=<mod>:<idx> key-hash filter
+        import struct as _struct
+
+        mr = self._mapreduce_service()
+        if mr.get_result_filename(result_id) is None:
+            h.send_response(404)
+            h.end_headers()
+            return
+        sample_mod = sample_idx = 0
+        sample = params.get("sample", "")
+        if sample:
+            parts = sample.split(":")
+            if len(parts) != 2:
+                return self._text(
+                    h, 400,
+                    "invalid ?sample=... parameter, format is <mod>:<idx>",
+                )
+            sample_mod, sample_idx = int(parts[0]), int(parts[1])
+        h.send_response(200)
+        h.send_header("Content-Type", "application/octet-stream")
+        h.end_headers()
+        for k, v in mr.read_result(result_id, sample_mod, sample_idx):
+            h.wfile.write(_struct.pack("<II", len(k), len(v)) + k + v)
+        h.wfile.write(_struct.pack("<II", 0, 0))
 
     def _alter_target(self):
         provider = self._tables_provider()

@@ -821,3 +821,89 @@ def test_draw_over_the_general_route_on_the_card_equals_the_cpu_route(cuda_devic
         assert chip_smoke.render(Runtime(device=cuda_device), provider, sql) == want, name
         if name == "area_ydomain_g1":
             assert chip_smoke.launch_counts()["hash_groupby"] == 1
+
+
+def test_evqlbench_on_the_card_equals_the_cpu(cuda_device, capsys):
+    """evqlbench's default query over its synthetic 2^20-row table: the same
+    output but for the times under --device cuda and --device cpu; on the
+    card the warm-up and both rounds take the GROUP BY route and launch
+    groupby_agg."""
+    import chip_smoke
+    from eventql_tpu_torch.cli import evqlbench
+    from eventql_tpu_torch.exec import device_exec
+
+    lines = {}
+    for device in ("cuda", "cpu"):
+        chip_smoke.zero_launch_counts()
+        before = device_exec.FUSED_GROUPBY_COUNT
+        assert evqlbench.main(["--device", device, "--rows", str(1 << 20), "-n", "2"]) == 0
+        out = capsys.readouterr().out
+        lines[device] = [l for l in out.splitlines() if l.startswith(("query:", "result rows:"))]
+        assert device_exec.FUSED_GROUPBY_COUNT - before == 3
+        if device == "cuda":
+            assert chip_smoke.launch_counts()["groupby_agg"] == 3
+    assert lines["cuda"] == lines["cpu"] and lines["cuda"][1] == "result rows: 1024"
+
+
+def test_embedded_server_on_the_card(cuda_device):
+    """The port's C host boots the embedded server with server.device=cuda
+    (its default) and runs DDL, DML and a query; the server library loaded
+    into this process serves a GROUP BY through the C client on the card."""
+    import ctypes
+    import subprocess
+    import threading
+
+    from eventql_tpu_torch.client.cclient import CClient
+    from eventql_tpu_torch.exec import device_exec
+    from eventql_tpu_torch.exec.relation import Column, Relation
+    from eventql_tpu_torch.exec.runtime import Runtime
+    from eventql_tpu_torch.core.types import SType
+    from eventql_tpu_torch.native import _build
+
+    for conf in ([], ["server.device=cuda"]):
+        out = subprocess.run([_build.path(_build.SMOKE_BIN), *conf], capture_output=True,
+                             text=True, timeout=300, env=_build.host_env())
+        assert out.returncode == 0 and "embedded server smoke OK" in out.stdout, out.stderr
+
+    import chip_smoke
+
+    lib, clib = chip_smoke._server_lib()
+    conf = clib.evql_conf_init()
+    for key, value in ((b"server.listen", b"127.0.0.1:0"), (b"server.device", b"cuda")):
+        assert clib.evql_conf_set(conf, key, value) == 0
+    server = lib.evql_server_init(conf)
+    kill_r, kill_w = os.pipe()
+    try:
+        assert lib.evql_server_start(server) == 0, lib.evql_server_geterror(server)
+        embedded = ctypes.cast(server, ctypes.POINTER(ctypes.py_object))[0]
+        n = 1 << 20
+        rng = np.random.default_rng(2)
+        k, v = rng.integers(0, 1024, n).astype(np.uint64), rng.integers(0, 1000, n).astype(np.uint64)
+        svc = embedded.table_service
+        rt = Runtime(device="cpu")
+        rt.build_query_plan(rt.new_transaction(svc), "CREATE TABLE t (k uint64, v uint64);").execute(0)
+        svc.tables["t"].insert_batch(Relation(["k", "v"], [
+            Column(SType.UINT64, k, np.ones(n, bool)), Column(SType.UINT64, v, np.ones(n, bool))], n))
+        listener = threading.Thread(target=lib.evql_server_listen, args=(server, kill_r), daemon=True)
+        listener.start()
+        for _ in range(1000):
+            if embedded.listener is not None:
+                break
+            threading.Event().wait(0.01)
+        before = device_exec.FUSED_GROUPBY_COUNT
+        c = CClient("127.0.0.1", embedded.listener.port)
+        ((_cols, rows),) = c.query("select k, sum(v), count(1) from t where v < 800 group by k;")
+        c.close()
+        assert device_exec.FUSED_GROUPBY_COUNT == before + 1
+        keep = v < 800
+        assert sorted(rows) == sorted(
+            [str(g), str(int(v[keep & (k == g)].sum())), str(int((keep & (k == g)).sum()))]
+            for g in np.unique(k[keep]))
+        os.write(kill_w, b"x")
+        listener.join(timeout=60)
+    finally:
+        lib.evql_server_shutdown(server)
+        lib.evql_server_free(server)
+        clib.evql_conf_free(conf)
+        os.close(kill_r)
+        os.close(kill_w)

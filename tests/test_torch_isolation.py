@@ -470,6 +470,112 @@ def test_cluster_modules_read_no_environment():
         assert "environ" not in text and "getenv" not in text, path
 
 
+_TOOLS_MODULES = [
+    "client.mysql_wire", "client.cclient", "cli.zkserver", "cli.cstable_tool", "cli.evqlctl",
+    "cli.mysql2evql", "cli.evqlslap", "cli.evqlbench", "server.embedded", "columnar.sstable",
+    "mapreduce.js", "mapreduce.js.lexer", "mapreduce.js.parser", "mapreduce.js.interp",
+    "mapreduce.js_runtime", "mapreduce.api", "mapreduce.service", "mapreduce.distributed",
+    "native._build",
+]
+
+_TOOLS_PROGRAM = r"""
+import contextlib, importlib, io, json, os, subprocess, sys, tempfile, urllib.request
+for name in MODULES:
+    importlib.import_module("eventql_tpu_torch." + name)
+from eventql_tpu_torch.cli import cstable_tool, evqlbench, evqlctl, mysql2evql
+from eventql_tpu_torch.client.cclient import CClient
+from eventql_tpu_torch.columnar.sstable import SSTableReader, SSTableWriter
+from eventql_tpu_torch.core.errors import RuntimeError_
+from eventql_tpu_torch.exec import device_exec
+from eventql_tpu_torch.native import _build
+from eventql_tpu_torch.server.embedded import EmbeddedServer
+from eventql_tpu_torch.server.listener import Listener
+
+d = tempfile.mkdtemp()
+out = io.StringIO()
+with contextlib.redirect_stdout(out):
+    assert evqlbench.main(["--device", "cpu", "--rows", "4096", "-n", "1"]) == 0
+    assert evqlctl.main(["-C", os.path.join(d, "c.json"), "cluster-create"]) == 0
+    assert evqlctl.main(["-C", os.path.join(d, "c.json"), "cluster-list"]) == 0
+assert "result rows: " in out.getvalue() and device_exec.FUSED_GROUPBY_COUNT == 2
+w = SSTableWriter(os.path.join(d, "t.sst"))
+w.append(b"k", b"v")
+w.finalize()
+assert SSTableReader(os.path.join(d, "t.sst")).rows() == [(b"k", b"v")]
+
+# the embedded server on the CPU: a dump imported by mysql2evql, a GROUP
+# BY through the C client, a MapReduce JS job over HTTP, a segment dumped
+# by cstable_tool
+srv = EmbeddedServer({"server.device": "cpu", "server.datadir": os.path.join(d, "data")})
+assert srv.start() == 0
+srv.listener = Listener(srv.http, srv.native, port=0).start()
+dump = os.path.join(d, "dump.sql")
+with open(dump, "w") as f:
+    f.write("CREATE TABLE `ev` (\n  `id` bigint(20),\n  `k` varchar(8),\n  `v` bigint(20),\n"
+            "  PRIMARY KEY (`id`)\n);\nINSERT INTO `ev` VALUES "
+            + ",".join("(%d,'k%d',%d)" % (i, i % 3, i) for i in range(60)) + ";\n")
+with contextlib.redirect_stdout(io.StringIO()):
+    assert mysql2evql.main(["--source_file", dump, "--source_table", "ev",
+                            "--port", str(srv.port)]) == 0
+c = CClient("127.0.0.1", srv.port)
+want = [["k%d" % g, str(sum(range(g, 60, 3)))] for g in range(3)]
+assert c.query("select k, sum(v) from ev group by k order by k;")[0][1] == want
+c.close()
+assert device_exec.FUSED_GROUPBY_COUNT == 3
+program = (
+    'var m = EVQL.mapTable({table: "ev", map_fn: function(row) {'
+    ' return [[row.k, parseInt(row.v, 10)]]; }});'
+    ' var r = EVQL.reduce({sources: [m], shards: 1, reduce_fn: function(key, values) {'
+    ' var s = 0; while (values.hasNext()) { s += parseInt(values.next(), 10); }'
+    ' return [[key, s]]; }});'
+    ' EVQL.downloadResults([r]);')
+req = urllib.request.Request("http://127.0.0.1:%d/api/v1/mapreduce/execute" % srv.port,
+                             data=program.encode())
+body = urllib.request.urlopen(req, timeout=60).read().decode()
+assert body.count("event: result") == 3 and "job_finished" in body, body
+srv.table_service.commit_all()
+seg_dir = os.path.join(d, "data", "ev")
+seg = os.path.join(seg_dir, sorted(f for f in os.listdir(seg_dir) if f.endswith(".cst"))[0])
+assert cstable_tool.main(["dump", seg], out=io.StringIO()) == 0
+srv.shutdown()
+host = subprocess.run([_build.path(_build.SMOKE_BIN), "server.device=cpu"],
+                      capture_output=True, text=True, timeout=120, env=_build.host_env())
+assert host.returncode == 0 and "embedded server smoke OK" in host.stdout, host.stderr
+
+for make in (lambda: EmbeddedServer({}).start(),
+             lambda: evqlbench.main(["--rows", "16", "-n", "1"])):
+    try:
+        make()
+    except RuntimeError_ as e:
+        assert "CUDA" in str(e)
+    else:
+        raise AssertionError("a tool on device='cuda' ran without a GPU")
+bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+       or m == "jaxlib" or m == "eventql_tpu" or m.startswith("eventql_tpu.")]
+assert not bad, bad
+print("TOOLS-ISOLATED-OK")
+"""
+
+
+def test_tools_and_mapreduce_modules_run_without_jax():
+    """The other CLIs, the clients, the embedded server and its C host,
+    MapReduce with its JS runtime and the sstable files import and run (a
+    benchmark and a registry, a dump imported into an embedded server on
+    the CPU, a GROUP BY through the C client on the route, a JavaScript
+    job over HTTP, a segment dumped) with neither jax nor eventql_tpu
+    loaded; the embedded server and evqlbench left on their default device
+    raise without a card."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    out = subprocess.run(
+        [sys.executable, "-c", f"MODULES = {_TOOLS_MODULES!r}\n" + _TOOLS_PROGRAM],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "TOOLS-ISOLATED-OK" in out.stdout
+
+
 def _free_port() -> int:
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
@@ -502,7 +608,7 @@ def _port_sources():
     yield os.path.join(REPO, "profile_order.py")
     for root, _dirs, files in os.walk(os.path.join(REPO, "eventql_tpu_torch")):
         for f in files:
-            if f.endswith((".py", ".cu", ".cuh")):
+            if f.endswith((".py", ".cu", ".cuh", ".c")):
                 yield os.path.join(root, f)
 
 

@@ -14,6 +14,7 @@ takes its kernels' plain versions.
 """
 
 import json
+import re
 import socket
 import struct
 import sys
@@ -543,15 +544,103 @@ def test_http_status_dashboard():
     assert _both(case) == (True, True, True, True)
 
 
-@pytest.mark.parametrize("path", [
-    "/api/v1/mapreduce/execute", "/api/v1/mapreduce/tasks/map_partition",
-    "/api/v1/mapreduce/tasks/reduce", "/api/v1/mapreduce/tasks/save_to_table",
-    "/api/v1/mapreduce/result/abc"])
-def test_http_mapreduce_routes_answer_not_ported(path):
-    """mapreduce/ is not ported: every route of it answers in the JAX
-    server's error shape (500, {"error": ...}), as a SQLError would."""
-    status, out = _with_http(PORT, lambda s: _http(s, path, {}))
-    assert (status, out) == (500, {"error": "not ported to eventql_tpu_torch yet: mapreduce"})
+def _http_raw(server, path, body):
+    """(status, content type, body bytes) of a POST of ``body`` (bytes;
+    None: a GET)."""
+    req = urllib.request.Request(f"http://127.0.0.1:{server.port}{path}", data=body)
+    try:
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            return resp.status, resp.headers.get("Content-Type"), resp.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.headers.get("Content-Type"), e.read()
+
+
+def _mr_table(s, table):
+    _http(s, "/api/v1/tables/create", {"table": table, "schema": {"columns": [
+        {"name": "k", "type": "STRING"}, {"name": "v", "type": "UINT64"}]}})
+    _http(s, "/api/v1/tables/insert", [
+        {"table": table, "data": {"k": k, "v": v}}
+        for k, v in (("x", 1), ("x", 2), ("y", 5), ("z", 7), ("y", 11))])
+
+
+_MR_MAP = "lambda row: [(row['k'], str(row['v']))]"
+_MR_REDUCE = "lambda k, vs: [(k, str(sum(int(v) for v in vs)))]"
+_MR_JS = """
+EVQL.log("mapping");
+var m = EVQL.mapTable({table: "TABLE", map_fn: function(row) {
+    return [[row.k, parseInt(row.v, 10)]]; }});
+var r = EVQL.reduce({sources: [m], shards: 1, reduce_fn: function(key, values) {
+    var s = 0;
+    while (values.hasNext()) { s += parseInt(values.next(), 10); }
+    return [[key, s]];
+}});
+EVQL.downloadResults([r]);
+"""
+
+
+def _map_partition(s, table, **extra):
+    body = urllib.parse.urlencode({"table": table, "partition": "p0",
+                                   "map_function": _MR_MAP, **extra}).encode()
+    return _http_raw(s, "/api/v1/mapreduce/tasks/map_partition", body)
+
+
+def _result_of(s, table, query=""):
+    _status, _ctype, sse = _map_partition(s, table)
+    rid = sse.decode().split("data: ")[1].split("\n")[0]
+    return _http_raw(s, f"/api/v1/mapreduce/result/{rid}{query}", None)
+
+
+# each case: (needs a table, fn(server, table) -> observation)
+MAPREDUCE_ROUTES = {
+    "execute_json_job": lambda s, t: _http_raw(s, "/api/v1/mapreduce/execute", json.dumps({
+        "jobs": {"m": {"op": "map_table", "table": t, "map_fn": _MR_MAP},
+                 "r": {"op": "reduce", "sources": ["m"], "reduce_fn": _MR_REDUCE},
+                 "out": {"op": "return_results", "sources": ["r"]}},
+        "execute": ["out"]}).encode()),
+    "execute_js_program": lambda s, t: _http_raw(
+        s, "/api/v1/mapreduce/execute", _MR_JS.replace("TABLE", t).encode()),
+    "execute_empty_program": lambda s, t: _http_raw(s, "/api/v1/mapreduce/execute", b" "),
+    "execute_js_error": lambda s, t: _http_raw(
+        s, "/api/v1/mapreduce/execute", b"EVQL.mapTable({table: 'nope'}); x.y;"),
+    "map_partition": lambda s, t: _map_partition(s, t),
+    "map_partition_cache_miss": lambda s, t: _map_partition(s, t, cache_only="true",
+                                                            map_function="lambda r: []"),
+    "map_partition_missing_parameter": lambda s, t: _http_raw(
+        s, "/api/v1/mapreduce/tasks/map_partition", b"table=t"),
+    "map_partition_unknown_table": lambda s, t: _map_partition(s, "no_such_table"),
+    "reduce_missing_parameter": lambda s, t: _http_raw(
+        s, "/api/v1/mapreduce/tasks/reduce", b"input_table=x"),
+    "reduce_without_inputs": lambda s, t: _http_raw(
+        s, "/api/v1/mapreduce/tasks/reduce",
+        urllib.parse.urlencode({"reduce_fn": _MR_REDUCE}).encode()),
+    "save_to_table_missing_parameter": lambda s, t: _http_raw(
+        s, "/api/v1/mapreduce/tasks/save_to_table", b"result_id=abc"),
+    "save_to_table_unknown_result": lambda s, t: _http_raw(
+        s, "/api/v1/mapreduce/tasks/save_to_table", b"result_id=abc&table_name=out"),
+    "result_unknown_id": lambda s, t: _http_raw(s, "/api/v1/mapreduce/result/abc", None),
+    "result_frames": lambda s, t: _result_of(s, t),
+    "result_sample": lambda s, t: _result_of(s, t, "?sample=2:1"),
+    "result_bad_sample": lambda s, t: _result_of(s, t, "?sample=2"),
+}
+
+
+@pytest.mark.parametrize("case", list(MAPREDUCE_ROUTES))
+def test_http_mapreduce_routes_answer_as_the_jax_server(case):
+    """Every /api/v1/mapreduce/* route (a job spec or a JavaScript program
+    to execute, the map_partition / reduce / save_to_table task RPCs, the
+    result stream) answers with the JAX server's status, content type and
+    body, byte for byte but for a map result's id (a hash that takes in
+    the process's boot epoch)."""
+    def run(pkg):
+        def on(s):
+            table = f"mr_{case}"
+            _mr_table(s, table)
+            status, ctype, body = MAPREDUCE_ROUTES[case](s, table)
+            return status, ctype, re.sub(rb"\b[0-9a-f]{40}\b", b"<result id>", body)
+        return _with_http(pkg, on)
+
+    got = _both(run)
+    assert b"not ported" not in got[2]
 
 
 def test_http_add_and_remove_field():

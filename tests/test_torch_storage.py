@@ -13,8 +13,10 @@ server/native_tcp.py against the JAX package's; and SQL over a stored
 table under Runtime(device="cpu"), whose routes must serve it, against
 the JAX host engine. The serving and cluster tiers' copies (plan coders, servers,
 cluster fan-out, CLIs, charts, the config directory, the partition
-metadata and the cluster's workers) are held to their originals here
-too, each deliberate difference listed by the region it lies in.
+metadata and the cluster's workers) and those of the tools, the clients,
+the embedded server and MapReduce with its JS interpreter and sstable
+files are held to their originals here too, each deliberate difference
+listed by the region it lies in.
 """
 
 import importlib
@@ -104,28 +106,20 @@ SERVING_COPIES = {
         ("    def _mesh_provider_for(", "    def _handle_partialaggr("),
         ("                # TCP-over-", "                partial = self._mesh_partial("),
     ],
-    # the device is an argument; the mapreduce routes answer "not ported"
+    # the device is an argument
     "server.http_api": [
-        ("  POST     /api/v1/mapreduce/", "  GET      /api/v1/auth/info"),
         ("        client_auth=None,\n", "        # queries may run against"),
         ("        self.runtime = Runtime(", "        self.stats = ServerStats()"),
-        ("                return self._handle_describe(h, params, payload)\n",
-         '            if path == "/api/v1/auth/info":'),
-        ('            w(b"event: query_error\\ndata: ")', "    @staticmethod\n    def _sse_begin"),
-        ("        return sse\n", "    def _alter_target(self):"),
     ],
     # the cluster provider, its partition metadata tier (routed and
     # replicated inserts, per-partition jobs, failover, the per-host cap,
     # DESCRIBE PARTITIONS) and cluster_provider_from_config over the
     # config directory
     "parallel.cluster": [],
-    # --device / --mesh_shards; no --standalone; the query cache without a
-    # mapreduce cache
+    # --device / --mesh_shards; no --standalone
     "cli.evqld": [
         ('"""Server binary', "from __future__"),
         ('    ap = argparse.ArgumentParser(prog="evqld"', '        "--config_dir",'),
-        ("        metadata_service = MetadataService(MetadataStore(meta_dir))\n",
-         "    server = EventQLServer("),
         ("        client_auth=client_auth,\n", "    # the primary port sniffs"),
         ("        query_cache=query_cache,\n", "    from eventql_tpu.server.listener import Listener"),
         ('        f" native://{nhost}:{native.port}"', "    stop = []"),
@@ -140,6 +134,30 @@ SERVING_COPIES = {
         "db.metadata_file", "db.metadata_service", "db.metadata_transport",
         "db.server_allocator", "db.replication", "db.rebalance", "db.leader",
         "db.metadata_replication", "db.monitor", "db.autosplit")},
+    # the other CLIs, the clients, MapReduce with its JS interpreter and its
+    # sstable files
+    **{mod: [] for mod in (
+        "client.__init__", "client.mysql_wire", "cli.zkserver", "cli.cstable_tool",
+        "cli.evqlctl", "cli.mysql2evql", "cli.evqlslap", "columnar.sstable",
+        "mapreduce.__init__", "mapreduce.js.__init__", "mapreduce.js.lexer",
+        "mapreduce.js.parser", "mapreduce.js.interp", "mapreduce.js_runtime",
+        "mapreduce.api", "mapreduce.service")},
+    # a map shard whose partition split while the job ran maps the
+    # partitions that now cover its keyrange (ROADMAP C16), where the JAX
+    # scheduler drops it
+    "mapreduce.distributed": [("            # tolerate failed shards (reference: map_table",
+                               "    def _reduce(")],
+    # --device for the query's runtime
+    "cli.evqlbench": [
+        ('    ap.add_argument("--rows"', "    args = ap.parse_args(argv)"),
+        ("    rt = Runtime(", "    txn = rt.new_transaction(tables)"),
+    ],
+    # the C client library is built into the port's own build directory,
+    # never under native/
+    "client.cclient": [("import ctypes\n", "    lib.evql_client_init.restype")],
+    # the device is an argument (server.device)
+    "server.embedded": [("        self.table_service = table_service\n",
+                         "        self._started = True")],
     # --device for the embedded engine
     "cli.console": [
         ("class LocalBackend:", "class HTTPBackend:"),
