@@ -17,17 +17,21 @@ Phases (any mismatch or exception ends the run with a non-zero code):
      tier rule against the launcher's at the boundaries;
   4. main paths: SQL text -> Runtime(device="cuda") -> ResultList on a
      partition-sized table (2^26 rows, ~2.8 GB on the device): first the
-     GROUP BY sum/count queries, then the general GROUP BY queries G1-G5
+     GROUP BY sum/count queries, then the general GROUP BY queries G1-G7
      (min / max / mean, a key beyond K_CAP, two keys, count_distinct,
-     float sums: the hash aggregate, each in the tier its key spans
-     choose, with its peak device memory), then
+     float sums, a WHERE that leaves under 1 % of a 2^20-slot key's slots
+     occupied in the direct global tier and the same groups in the hash
+     tier: the hash aggregate, each in the tier its key spans choose, with
+     its peak device memory, its groups compacted on the card, and the
+     copies and bytes a run reads back), then
      the ORDER BY [LIMIT] queries, then the fact-dim JOIN + GROUP BY
      queries (dimension tables of 1024 and 2^18 rows; J1 with min / max
      through the join route's general branch), each path with the launch
      counts set to 0 just before it and read just after. Every query's
      rows equal an independent numpy answer and, on a 2^20-row prefix,
-     the port's own host engine; route and launch counters rose as they
-     must;
+     the port's own host engine (G6 and G7 also their route's plain
+     version, Runtime(device="cpu")); route and launch counters rose as
+     they must;
   5. the main paths' shapes: every kernel call the queries of phase 4
      made is repeated on the same tensors through the wrapper and the
      plain version, which must be equal (tolerance 0); then CUDA-event
@@ -164,7 +168,9 @@ Phases (any mismatch or exception ends the run with a non-zero code):
      its default query the headline GROUP BY: the route counter up 6 and
      B1 launched 6 times), its answer over the table rebuilt from the
      tool's seed equal to numpy, then ``-t t=<file>.cst`` over a 2^22-row
-     cstable file the port's writer made, with the route that served it;
+     cstable file the port's writer made, with the route that served it
+     (the keyless ``count(1)``: the general route, H1 launched twice with
+     no stream but the device);
      then phase 4's 2^26 rows in an in-memory TableService behind one port
      on the card (as phase 10's) for (b) evqlslap (4 threads, unthrottled,
      TOOLS_SLAP_S s each) on the headline (B1), topk_ts_desc (B1 + B3) and
@@ -1234,6 +1240,16 @@ GENERAL_SQL = {
     "G4_count_distinct": "select k, count_distinct(v) from t group by k;",
     "G5_float_sums": "select cat, sum(v / 64), mean(w) from t group by cat;",
 }
+# the general GROUP BY where few of a key's slots hold a group: the WHERE
+# keeps about 1 row in 10^4, so that w's 2^20 slots hold under 1 % of
+# groups; G6 in the direct global tier (w's stored span), G7 in the hash
+# tier (a computed key has no span)
+SPARSE_WHERE = f"big < {BIG_BASE + 10}"
+COMPACTION_SQL = {
+    "G6_sparse_span": f"select w, count(1), sum(v) from t where {SPARSE_WHERE} group by w;",
+    "G7_hash_tier": f"select w + 1, count(1), sum(v) from t where {SPARSE_WHERE}"
+                    " group by w + 1;",
+}
 # the join route's general branch (min / max after the small-table probe)
 J1 = ("join_min_max",
       "select d1.region, min(t.v), max(t.w) from t join d1 on t.dk = d1.k"
@@ -1312,6 +1328,23 @@ def general_queries(c, dictionary, n, cat_lo=CAT_LO):
     return [(name, GENERAL_SQL[name], rows) for name, rows in out]
 
 
+def compaction_queries(c, n):
+    """(name, sql, expected rows in order) of COMPACTION_SQL: independent
+    numpy answers, groups in the order of their first rows."""
+    rows = np.nonzero(c["big"][:n] < BIG_BASE + 10)[0]
+    w, v = c["w"][:n][rows].astype(np.int64), c["v"][:n][rows]
+    uniq, first, inv = np.unique(w, return_index=True, return_inverse=True)
+    counts = np.bincount(inv, minlength=len(uniq))
+    sums = np.bincount(inv, weights=v.astype(np.float64), minlength=len(uniq))
+    order = np.argsort(first, kind="stable")
+    out = []
+    for name, shift in (("G6_sparse_span", 0), ("G7_hash_tier", 1)):
+        out.append((name, COMPACTION_SQL[name],
+                    [[str(int(uniq[o]) + shift), str(int(counts[o])), str(int(sums[o]))]
+                     for o in order]))
+    return out
+
+
 def join_min_max_rows(region, v, w):
     """J1's independent answer: per region of a row's dimension row
     (-1: none), min(v) and max(w), regions in the order of their first
@@ -1339,6 +1372,8 @@ GENERAL_TIERS = {
     "G3_two_keys": {"global": 1},
     "G4_count_distinct": {"shared": 1, "bitmap_shared": 1},
     "G5_float_sums": {"shared": 1},
+    "G6_sparse_span": {"global": 1},
+    "G7_hash_tier": {"hash": 1},
     J1[0]: {"shared": 1},
 }
 
@@ -1354,7 +1389,7 @@ def general_path(rt, full, qs, reps):
         forms = dict(hg.FORMS)
         before = launch_counts()
         route0 = device_exec.GENERAL_GROUPBY_COUNT
-        reads0 = ksort.READBACKS
+        reads0, bytes0 = ksort.READBACKS, ksort.READBACK_BYTES
         torch.cuda.reset_peak_memory_stats()
         res, times, n_calls, recorded = _timed_runs(rt, full, sql, reps)
         peak = torch.cuda.max_memory_allocated()
@@ -1376,7 +1411,8 @@ def general_path(rt, full, qs, reps):
         calls[name] = recorded
         launches_by_query[name] = {"hash_groupby": 1}
         e2e[name] = _e2e(times, groups=len(got), tier=took, peak_bytes=peak,
-                         readbacks=(ksort.READBACKS - reads0) // reps)
+                         readbacks=(ksort.READBACKS - reads0) // reps,
+                         readback_bytes=(ksort.READBACK_BYTES - bytes0) // reps)
     return e2e, launches_by_query, calls
 
 
@@ -1549,11 +1585,13 @@ def phase_main_path(device, n, n_prefix, reps):
     oqs = order_queries(cols, dictionary, n)
     jqs = join_queries(cols, dims, n)
     hqs = general_queries(cols, dictionary, n)
+    cqs = compaction_queries(cols, n)
     log(f"phase 4: table of {n} rows and expected answers made in"
         f" {time.perf_counter() - t0:.1f} s")
 
     rt = Runtime(plan_cache=PlanCache(), device=device)
     host_rt = Runtime(device=None)
+    plain_rt = Runtime(device="cpu")
 
     zero_launch_counts()
     g_e2e, g_per_query, g_calls = groupby_path(rt, full, gqs, reps)
@@ -1564,13 +1602,17 @@ def phase_main_path(device, n, n_prefix, reps):
         f" rows; launches {g_launches}")
 
     zero_launch_counts()
-    h_e2e, h_per_query, h_calls = general_path(rt, full, hqs, reps)
+    h_e2e, h_per_query, h_calls = general_path(rt, full, hqs + cqs, reps)
     h_launches = launch_counts()
+    for name, e in h_e2e.items():
+        log(f"phase 4: {name}: {e['groups']} groups ({e['tier']}), a run reads back"
+            f" {e['readback_bytes']} bytes in {e['readbacks']} copies; warm"
+            f" {e['warm_ms_median']:.3f} ms, first {e['first_ms']:.3f} ms")
     peak = max(e["peak_bytes"] for e in h_e2e.values())
     check(h_launches["hash_groupby"] > 0, "hash_groupby: not launched on the general path")
     total = torch.cuda.get_device_properties(device).total_memory
     check(peak < total // 2, f"general path: peak {peak} bytes of {total}")
-    log(f"phase 4: {len(hqs)} general GROUP BY queries x {reps} equal to numpy at {n}"
+    log(f"phase 4: {len(hqs + cqs)} general GROUP BY queries x {reps} equal to numpy at {n}"
         f" rows, in order; launches {h_launches}")
 
     zero_launch_counts()
@@ -1615,13 +1657,17 @@ def phase_main_path(device, n, n_prefix, reps):
         b = run_query(host_rt, prefix, sql).rows
         check(a == b and len(a) > 0,
               f"{name}: device route and host engine differ on the prefix")
-    for name, sql, _rows in hqs:
+    for name, sql, _rows in hqs + cqs:
         route0 = device_exec.GENERAL_GROUPBY_COUNT
         a = run_query(rt, prefix, sql).rows
         b = run_query(host_rt, prefix, sql).rows
         check(a == b and len(a) > 0,
               f"{name}: device route and host engine differ on the prefix")
-        check(device_exec.GENERAL_GROUPBY_COUNT - route0 == 1,
+        plain = name in COMPACTION_SQL
+        if plain:  # the same route on the CPU device: its plain version
+            check(run_query(plain_rt, prefix, sql).rows == a,
+                  f"{name}: device route and its plain version differ on the prefix")
+        check(device_exec.GENERAL_GROUPBY_COUNT - route0 == 1 + plain,
               f"{name}: general route counter on the prefix")
     for name, sql, per_run, expected in jqs:
         route0 = device_exec.JOIN_GROUPBY_COUNT
@@ -1631,8 +1677,8 @@ def phase_main_path(device, n, n_prefix, reps):
               f"{name}: device route and host engine differ on the prefix")
         check(device_exec.JOIN_GROUPBY_COUNT - route0 == (expected is not None),
               f"{name}: join route counter on the prefix")
-    log(f"phase 4: {len(gqs) + len(hqs) + len(oqs) + len(jqs)} queries equal to the"
-        f" host engine at {n_prefix} rows")
+    log(f"phase 4: {len(gqs) + len(hqs + cqs) + len(oqs) + len(jqs)} queries equal to the"
+        f" host engine at {n_prefix} rows; {len(cqs)} also to their route's plain version")
     # the counts as read after each path's full-size queries: the prefix
     # runs above and phase 5 launch too, and are not the main path
     return dict(
@@ -2028,6 +2074,12 @@ def _hash_streams(kw):
     return out
 
 
+def _hash_device(kw):
+    """The device of a recorded hash_groupby call: its ``device``, else
+    its streams'."""
+    return kw.get("device") or _hash_streams(kw)[0][1].device
+
+
 def hash_bound_of(kw, groups):
     """Least time for the call: every key, value and mask stream read
     once at its stored width and the results (count, first row, one
@@ -2055,9 +2107,10 @@ def hash_library_ms(kw):
     are widened and stacked beforehand. Not the kernel's semantics at
     every corner (a u64 min in signed order), a yardstick of the time."""
     n = kw["n"]
-    rows = torch.arange(n, device=kw["keys"][0].device) if kw.get("mask") is None else (
+    rows = torch.arange(n, device=_hash_device(kw)) if kw.get("mask") is None else (
         torch.nonzero(kw["mask"][:n]).flatten())
-    keys = [k[:n][rows].to(torch.int64) for k in kw["keys"]]
+    # no key: every row in one group
+    keys = [k[:n][rows].to(torch.int64) for k in kw["keys"]] or [torch.zeros_like(rows)]
     key = keys[0] if len(keys) == 1 else torch.stack(keys, 1)
     vals = [v[:n][rows] for v in kw.get("values", ())]
     vals = [v if v.dtype == torch.float64 else v.to(torch.int64) for v in vals]
@@ -2116,9 +2169,11 @@ def check_and_time_hash(label, kw, iters):
                # call's tier and in the hash tier: the rest of ms is the
                # value streams' atomics and count_distinct
                ids_count_first_ms=cuda_ms(lambda: hg.hash_groupby(
-                   kw["keys"], kw["n"], kw.get("mask"), key_spans=kw.get("key_spans")), iters),
+                   kw["keys"], kw["n"], kw.get("mask"), key_spans=kw.get("key_spans"),
+                   device=kw.get("device")), iters),
                hash_tier_ids_count_first_ms=cuda_ms(
-                   lambda: hg.hash_groupby(kw["keys"], kw["n"], kw.get("mask")), iters),
+                   lambda: hg.hash_groupby(kw["keys"], kw["n"], kw.get("mask"),
+                                           device=kw.get("device")), iters),
                peak_bytes=_peak_bytes(lambda: hg.hash_groupby(**kw)),
                hash_tier_peak_bytes=_peak_bytes(lambda: hg.hash_groupby(**as_hash)))
     out.update(hash_library_ms(kw))
@@ -4199,7 +4254,7 @@ CLUSTER_TIER_RF = 2
 CLUSTER_TIER_ROWS = 1 << 16  # rows inserted, unless the routed rate forces a cut
 CLUSTER_TIER_SPLIT_ROWS = 1 << 12  # --partition_split_threshold_rows
 CLUSTER_TIER_BATCH = 256  # records in one POST /api/v1/tables/insert
-CLUSTER_TIER_INSERT_S = 90.0  # the inserts' budget: no request starts after it
+CLUSTER_TIER_INSERT_S = 60.0  # the inserts' budget: no request starts after it
 CLUSTER_TIER_START_S = 180.0  # a node that has not registered by then fails the phase
 CLUSTER_TIER_DEADLINE_S = 120.0  # for a split, the read-back, "down", the first exact answer
 CLUSTER_TIER_REPS = 3
@@ -4696,22 +4751,25 @@ TOOLS_SLAP_QUERIES = {  # query -> kernels a run launches
     "G1_min_max_mean": ("hash_groupby",),
 }
 TOOLS_ROWBUFLEN = 1024  # rows a page of the C client's k_100000 fetch
-# the cuts (PERF.md section 4): as many rows as about 30 s take, at the rates
-# the port showed on a CPU (mysql2evql about 38 000 rows a second into a
-# table of 200 000 rows, the JS interpreter's job about 21 000)
-TOOLS_IMPORT_ROWS = 1_000_000
+# the cuts (PERF.md section 4): as many rows as about 15 s take, at the rates
+# the port showed on the card's host (mysql2evql 31 000-49 000 rows a second,
+# the JS interpreter's job 19 000-24 000)
+TOOLS_IMPORT_ROWS = 500_000
 TOOLS_IMPORT_BATCH = 1024
-TOOLS_MR_ROWS = 1 << 19
+TOOLS_MR_ROWS = 1 << 18
 ROUTE_COUNTERS = ("FUSED_GROUPBY_COUNT", "GENERAL_GROUPBY_COUNT", "SCAN_TOPK_COUNT",
                   "SCAN_ORDER_COUNT", "JOIN_GROUPBY_COUNT")
 
 
 def _on_the_card(arguments):
-    """Whether a call's arguments hold a CUDA tensor (the wrapper launches
-    its kernel on one; a call with none runs the plain version)."""
+    """Whether a call's arguments hold a CUDA tensor or name a CUDA device
+    (the wrapper launches its kernel there; elsewhere it runs the plain
+    version)."""
     for v in arguments.values():
         for t in (v if isinstance(v, (list, tuple)) else (v,)):
             if isinstance(t, torch.Tensor) and t.is_cuda:
+                return True
+            if isinstance(t, torch.device) and t.type == "cuda":
                 return True
     return False
 
@@ -4830,10 +4888,17 @@ def tools_bench(steps, dev, tmp):
         nums = _bench_numbers(text)
         check(rc == 0 and nums["result_rows"] == want,
               f"phase 12: evqlbench -t {step}: {text!r}")
+        if name == "count":
+            # the keyless count(1): the general route hands H1 no tensor,
+            # only the device; a warm-up and one round, each a launch
+            check(steps.routes[step]["GENERAL_GROUPBY_COUNT"] == 2,
+                  f"phase 12: evqlbench -t {step}: routes {steps.routes[step]}")
+            steps.launched(step, ("hash_groupby",), f"evqlbench -t {step}", times=2)
         routes = {c: d for c, d in steps.routes[step].items() if d}
         cst[name] = dict(query=query or "select count(1) from t;", routes=routes, **nums)
         log(f"phase 12: evqlbench -t t=<{m} rows>.cst {cst[name]['query']!r}: best"
-            f" {nums['best_ms']} ms, served by {routes or 'no device route'}")
+            f" {nums['best_ms']} ms, served by {routes or 'no device route'}, launches"
+            f" {steps.launches[step]}")
     out["cstable"] = dict(rows=m, **cst)
     return out
 
@@ -5064,7 +5129,7 @@ def tools_mysql2evql(steps, port, stored, dictionary, tmp):
     want = {q[0]: (q[1], q[4], True) for q in queries(sub, dictionary, cat_lo=0)}
     want.update({name: (sql, rows, False)
                  for name, sql, rows in general_queries(sub, dictionary, m, cat_lo=0)})
-    out = dict(rows=m, rows_wanted="about 30 s of import", import_s=import_s,
+    out = dict(rows=m, rows_wanted="about 15 s of import", import_s=import_s,
                rows_per_s=m / import_s, queries={})
     for name, counter, kernel in (("headline", "FUSED_GROUPBY_COUNT", "groupby_agg"),
                                   ("G1_min_max_mean", "GENERAL_GROUPBY_COUNT", "hash_groupby")):
@@ -5107,7 +5172,7 @@ def tools_mapreduce(steps, port, svc, stored, dictionary):
           f"phase 12: the MapReduce job's pairs differ from numpy: {text[-2000:]}")
     log(f"phase 12: a JavaScript MapReduce job over {m} rows: {len(want)} pairs equal to numpy"
         f" in {ms / 1e3:.1f} s ({m / ms * 1e3:.0f} rows a second)")
-    return dict(rows=m, rows_wanted="about 30 s of the job", ms=ms, rows_per_s=m / ms * 1e3,
+    return dict(rows=m, rows_wanted="about 15 s of the job", ms=ms, rows_per_s=m / ms * 1e3,
                 pairs=len(want))
 
 

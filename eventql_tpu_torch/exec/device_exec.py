@@ -605,10 +605,14 @@ def try_execute_string_groupby(
             value_bits, n, device,
         )
 
-    # ONE device->host copy of the packed [counts, out0, ...] stack
-    packed_h = packed.cpu().numpy().view(np.uint64)
-    counts_h, outs_h = packed_h[0], list(packed_h[1:])
-    occupied = np.nonzero(counts_h > 0)[0]
+    # the occupied buckets of the packed [counts, out0, ...] stack,
+    # compacted on the device and read back in ONE copy; the bucket ids
+    # stand in the first-row place: buckets come in bucket order
+    from eventql_tpu_torch.kernels.hash_groupby import Grouped
+
+    slots = torch.arange(packed.shape[1], dtype=torch.int64, device=device)
+    occupied, _counts, outs_h, _d, _w = _read_groups(
+        Grouped(slots, packed[0], tuple(packed[1:]), ()), order=None)
     ng = len(occupied)
 
     from eventql_tpu_torch.exec.vector_eval import EvalContext, evaluate_vector
@@ -647,7 +651,7 @@ def try_execute_string_groupby(
             agg_cols = []
             for slot, i in enumerate(idxs):
                 rtype = entries_aggs_rtypes[(id(emit), slot)]
-                data = outs_h[i][occupied].astype(np.uint64)
+                data = outs_h[i].view(np.uint64)
                 if rtype == SType.INT64:
                     data = data.view(np.int64)
                 agg_cols.append(
@@ -994,24 +998,61 @@ def _stored_span(c: Column, nullable: bool = False):
     return (lo, hi - lo + 1, torch_expr.is_unsigned(c.stype))
 
 
-def _grouped_to_host(res, extra=()):
-    """ONE device->host copy of a Grouped (and of ``extra`` int64[G]
-    rows): (first rows, counts, aggregates, distinct counts, extra rows),
-    the groups in the order of their first rows; empty slots (count 0,
-    from the direct tiers) dropped."""
+def _words(t: torch.Tensor) -> torch.Tensor:
+    """A stream as int64 words: float64 by its bits, narrower integers
+    and bools widened (a narrowed unsigned stream sign-extends from its
+    signed view; ``_first_row_columns`` truncates it back)."""
+    return t.view(torch.int64) if t.dtype == torch.float64 else t.to(torch.int64)
+
+
+def _read_groups(res, gather=(), order="first_row"):
+    """The groups of a ``Grouped``, compacted on the device
+    (``compact_groups``: empty slots dropped, the rest in the order of
+    their first rows or as ``order`` says, each ``gather`` stream read at
+    each group's first row), then ONE device->host copy of O(groups)
+    int64 words: (first rows, counts, aggregates, distinct counts,
+    gathered streams). No copy where there is no group."""
+    from eventql_tpu_torch.kernels.hash_groupby import compact_groups
     from eventql_tpu_torch.kernels.sort import read_host
 
-    rows = [res.first_index, res.counts, *extra]
-    rows += [a.view(torch.int64) if a.dtype == torch.float64 else a for a in res.aggregates]
-    rows += list(res.distinct)
-    packed = read_host(torch.stack(rows)) if res.first_index.numel() else (
-        np.zeros((len(rows), 0), np.int64))
-    occupied = np.nonzero(packed[1] > 0)[0]
-    packed = packed[:, occupied[np.argsort(packed[0][occupied], kind="stable")]]
-    ne = len(extra)
-    na = len(res.aggregates)
-    return (packed[0], packed[1], packed[2:2 + ne], packed[2 + ne:2 + ne + na],
-            packed[2 + ne + na:])
+    g, rows = compact_groups(res, order, gather)
+    words = [g.first_index, g.counts, *g.aggregates, *g.distinct, *rows]
+    if g.counts.numel():
+        packed = read_host(torch.stack([_words(w) for w in words]))
+    else:
+        packed = np.zeros((len(words), 0), np.int64)
+    na, nd = len(g.aggregates), len(g.distinct)
+    return (packed[0], packed[1], packed[2:2 + na], packed[2 + na:2 + na + nd],
+            packed[2 + na + nd:])
+
+
+def _first_row_planes(in_cols, host_cols):
+    """The device planes of the scan's input columns that a group's first
+    row is read from: each column's data, and its validity unless every
+    row is valid."""
+    planes = []
+    for dc, hc in zip(in_cols, host_cols):
+        planes.append(dc.data)
+        if not _column_all_valid(hc):
+            planes.append(dc.valid)
+    return planes
+
+
+def _first_row_columns(host_cols, words):
+    """Host Columns of the groups' first rows from the int64 words of
+    ``_first_row_planes``: the stored (narrowed) bits back in the
+    column's own dtype, a STRING's dictionary attached here."""
+    cols, it = [], iter(words)
+    for hc in host_cols:
+        stored = _narrow_np(hc).dtype
+        w = next(it)
+        if stored == np.float64:
+            data = w.view(np.float64)
+        else:
+            data = w.astype(_SIGNED_VIEW.get(stored, stored)).view(stored).astype(hc.data.dtype)
+        valid = np.ones(len(w), bool) if _column_all_valid(hc) else next(it).astype(bool)
+        cols.append(Column(hc.stype, data, valid, hc.dictionary))
+    return cols
 
 
 def _agg_columns(calls, where, counts, aggs, distinct):
@@ -1037,11 +1078,15 @@ def execute_device_groupby(node: qn.GroupByNode, txn) -> Optional[Relation]:
     The WHERE, the keys and the aggregate arguments evaluate in
     torch_expr (plain stored columns go as they are, with the spans the
     column cache knows: ``_stored_span``); one ``hash_groupby`` call
-    groups and aggregates, in the tier those spans allow; only
-    O(groups) leaves the device, in one copy (after the group count in
-    the hash tier). Groups come in the
-    order of their first rows (the host engine's), and entries that are
-    not aggregates are evaluated by the host evaluator on those rows.
+    groups and aggregates, in the tier those spans allow. The groups are
+    compacted on the device (``_read_groups``) and read back in one copy
+    of O(groups) words (after the group count in the hash tier): each
+    group's first row, count, aggregates and distinct counts, and, where
+    a select entry is not an aggregate, the group's first row of every
+    input column (data, and validity where a row may be NULL). Groups
+    come in the order of their first rows (the host engine's), and
+    entries that are not aggregates are evaluated by the host evaluator
+    on those rows, a STRING column's dictionary attached on the host.
     Returns None on empty tables (the host path builds the typed empty
     relation / ungrouped row) and on more key columns than the kernel
     takes."""
@@ -1098,15 +1143,18 @@ def execute_device_groupby(node: qn.GroupByNode, txn) -> Optional[Relation]:
     values, kinds, unsigned, distinct, dspans, where = _aggregate_inputs(
         [(a, a.args[0] if a.args else None) for a in calls], scan, in_cols, host_cols,
         scan_cols, n, device)
-    res = hash_groupby(keys, n, mask, values, kinds, unsigned, distinct, spans, dspans)
-    first, counts, _extra, aggs, dist = _grouped_to_host(res)
+    res = hash_groupby(keys, n, mask, values, kinds, unsigned, distinct, spans, dspans,
+                       device=device)
+    need_rows = any(tag == "first" for tag, _e, _b in entries)
+    planes = _first_row_planes(in_cols, host_cols) if need_rows else ()
+    first, counts, aggs, dist, words = _read_groups(res, planes)
     ng = len(first)
     agg_cols = _agg_columns(calls, where, counts, aggs, dist)
 
     scan_rows = []
-    if any(tag == "first" for tag, _e, _b in entries):
+    if need_rows:
         # each group's first row, through the host evaluator
-        ctx = EvalContext([c.gather(first) for c in host_cols], ng)
+        ctx = EvalContext(_first_row_columns(host_cols, words), ng)
         scan_rows = [evaluate_vector(sl.expr, ctx) for sl in scan.select_list]
     out_cols: List[Column] = []
     for tag, expr, base in entries:
@@ -1767,8 +1815,8 @@ def try_execute_device_join_groupby(
     The reference executes this shape as HashJoin feeding GroupBy
     (hash_join.cc + groupby.cc), row-at-a-time."""
     from eventql_tpu_torch.exec.vector_eval import EvalContext, evaluate_vector
+    from eventql_tpu_torch.kernels.hash_groupby import Grouped
     from eventql_tpu_torch.kernels.join import join_gid
-    from eventql_tpu_torch.kernels.sort import read_host
 
     plan = join_groupby_analysis(node, txn)
     if plan is None:
@@ -1814,28 +1862,31 @@ def try_execute_device_join_groupby(
     # is searched before the readback.
     head = min(n, FIRST_ROWS_PREFIX)
     first = _first_rows(gid, mask, 0, head, K, n)
+    slots = torch.arange(K, dtype=torch.int64, device=device)
 
-    # ONE device->host copy: counts, one row per sum, first rows
-    packed_h = read_host(torch.cat([out, first[None]]))
-    counts_h, first_h = packed_h[0], packed_h[-1]
-    occupied = np.nonzero(counts_h > 0)[0]
-    if (first_h[occupied] == n).any():
-        # a bucket whose rows all lie beyond the prefix: search the rest
-        # of the table too, at the price of a second readback
-        first_h = np.minimum(
-            first_h, read_host(_first_rows(gid, mask, head, n, K, n))
-        )
-    buckets = occupied[np.argsort(first_h[occupied], kind="stable")]
+    def read(first):
+        # ONE device->host copy of the occupied buckets, compacted on the
+        # device in first-row order: counts, one row per sum, bucket ids
+        return _read_groups(Grouped(first, out[0], (*out[1:], slots), ()))
+
+    first_h, counts_h, rows_h, _d, _w = read(first)
+    if len(first_h) and first_h[-1] == n:
+        # a bucket whose rows all lie beyond the prefix (its first row
+        # reads n and sorts last): search the rest of the table too, at
+        # the price of a second readback
+        first_h, counts_h, rows_h, _d, _w = read(
+            torch.minimum(first, _first_rows(gid, mask, head, n, K, n)))
+    buckets = rows_h[-1]
     ng = len(buckets)
 
     agg_cols: List[Column] = []
-    next_sum = 1
+    next_sum = 0
     for a, kind, _rsubj in all_aggs:
         rtype = a.sfunction.return_type
         if kind == "count":
-            data = counts_h[buckets]
+            data = counts_h
         else:
-            data = packed_h[next_sum][buckets]
+            data = rows_h[next_sum]
             next_sum += 1
         agg_cols.append(
             Column(rtype, data.astype(dtype_for(rtype)), np.ones(ng, bool))
@@ -1874,10 +1925,9 @@ def _join_general(node, plan, gid, mask, in_cols, scan_cols, n, device):
         [(a, rsubj) for a, _kind, rsubj in all_aggs], scan, in_cols, host_cols, scan_cols,
         n, device)
     res = hash_groupby([gid], n, keep, values, kinds, unsigned, distinct,
-                       [(0, len(plan["firsts"]), False)], dspans)
-    # an empty slot's first row is no row: gather row 0 for it (dropped)
-    bucket = gid[torch.where(res.counts > 0, res.first_index, 0)].to(torch.int64)
-    _first, counts, (buckets,), aggs, dist = _grouped_to_host(res, (bucket,))
+                       [(0, len(plan["firsts"]), False)], dspans, device=device)
+    # each group's bucket: the probe's at its first row
+    _first, counts, aggs, dist, (buckets,) = _read_groups(res, (gid,))
     ng = len(counts)
     agg_cols = _agg_columns(calls, where, counts, aggs, dist)
     group_out = plan["group_col"].gather(plan["firsts"][buckets])

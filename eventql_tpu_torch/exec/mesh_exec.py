@@ -218,7 +218,7 @@ def try_execute_mesh_groupby(node: qn.GroupByNode, txn, partial: bool = False):
             [(a, a.args[0] if a.args else None) for a in calls], scan, shard.cols,
             host_cols, scan_cols, n, dev)
         parts.append(_local_partial(keys, spans, n, mask, values, kinds, unsigned, distinct,
-                                    dspans, shard.g0))
+                                    dspans, shard.g0, dev))
         # this shard's temporaries go before the next shard's
         del scan_cols, mask, keys, valids, values, distinct
     merged = _merge(provider.mesh, parts, spans, kinds, unsigned, dspans, "sql_groupby_gather")
@@ -281,16 +281,20 @@ def _bounded_join_partial(plan, gid, mask, shard, scan_cols, K) -> _Partial:
     """One shard's integer sums and counts per bucket through B1 / B2
     (the single-card join route's bounded branch), compacted to the
     buckets it has, each with its first surviving global row."""
+    from eventql_tpu_torch.kernels.hash_groupby import Grouped, compact_groups
+
     out = dx._join_sum_tables(plan, gid, mask, shard.cols, scan_cols, shard.n, K,
                               shard.device)
-    occ = torch.nonzero(out[0] > 0).flatten()
     # first rows as the single-card route finds them: in a prefix of the
     # shard, and in the rest only for a bucket with no row in the prefix
     head = min(shard.n, dx.FIRST_ROWS_PREFIX)
-    first = dx._first_rows(gid, mask, 0, head, K, shard.n)[occ]
+    slots = torch.arange(K, dtype=torch.int64, device=shard.device)
+    g, _ = compact_groups(Grouped(dx._first_rows(gid, mask, 0, head, K, shard.n), out[0],
+                                  (*out[1:], slots), ()), order=None)
+    occ, first = g.aggregates[-1], g.first_index
     if head < shard.n and bool((first == shard.n).any()):
         first = torch.minimum(first, dx._first_rows(gid, mask, head, shard.n, K, shard.n)[occ])
-    return _Partial([occ.to(torch.int32)], out[0][occ], [s[occ] for s in out[1:]],
+    return _Partial([occ.to(torch.int32)], g.counts, list(g.aggregates[:-1]),
                     first + shard.g0, [])
 
 
@@ -341,7 +345,7 @@ def try_execute_mesh_join_groupby(node: qn.GroupByNode, txn) -> Optional[Relatio
                 [(a, rsubj) for a, _kind, rsubj in all_aggs], scan, shard.cols, host_cols,
                 scan_cols, n, dev)
             parts.append(_local_partial([gid], spans, n, keep, values, kinds, unsigned,
-                                        distinct, dspans, shard.g0))
+                                        distinct, dspans, shard.g0, dev))
             del keep, values, distinct
         del scan_cols, mask, gid
     merged = _merge(mesh, parts, spans, kinds, unsigned, dspans, "sql_join_gather")

@@ -111,11 +111,20 @@ def widen(t: torch.Tensor, unsigned: bool = False) -> torch.Tensor:
     return wide
 
 
-def _group_rows(mask, key_arrays, n: int):
-    """(masked-in rows, group of each, number of groups): the groups in
-    ascending order of their key tuples' bits."""
-    dev = key_arrays[0].device if key_arrays else (
-        mask.device if mask is not None else torch.device("cpu"))
+def _device_of(device, *streams):
+    """``device``, else the device of the first stream that is not None;
+    with neither, ValueError (nothing defaults to the CPU)."""
+    if device is not None:
+        return torch.device(device)
+    for t in streams:
+        if t is not None:
+            return t.device
+    raise ValueError("no stream to take the device from: pass device")
+
+
+def _group_rows(mask, key_arrays, n: int, dev):
+    """(masked-in rows on ``dev``, group of each, number of groups): the
+    groups in ascending order of their key tuples' bits."""
     if mask is None:
         rows = torch.arange(n, dtype=torch.int64, device=dev)
     else:
@@ -150,7 +159,7 @@ def _float_extreme(x, inverse, G, kind):
 
 
 def masked_grouped_aggregate(mask, key_arrays, value_arrays, agg_kinds,
-                             values_unsigned=None, n=None):
+                             values_unsigned=None, n=None, device=None):
     """Group the first ``n`` rows that ``mask`` keeps (all when None) by
     the tuple of ``key_arrays`` and reduce each of ``value_arrays`` by
     its kind in ``agg_kinds`` ("sum", "min", "max", "mean"; "mean"
@@ -158,12 +167,13 @@ def masked_grouped_aggregate(mask, key_arrays, value_arrays, agg_kinds,
     one sign-extends, or zero-extends where ``values_unsigned`` says so,
     which also makes min / max unsigned). Returns (first_index int64[G],
     counts int64[G], aggregates: one int64 (integer streams, u64 as bit
-    patterns) or float64 tensor [G] each)."""
+    patterns) or float64 tensor [G] each), on ``device`` (default: the
+    streams'; with no stream it must be given)."""
     n = _rows(mask, key_arrays, value_arrays, n)
     if values_unsigned is None:
         values_unsigned = (False,) * len(value_arrays)
-    rows, inverse, G = _group_rows(mask, key_arrays, n)
-    dev = rows.device
+    dev = _device_of(device, *key_arrays, *value_arrays, mask)
+    rows, inverse, G = _group_rows(mask, key_arrays, n, dev)
     first = torch.full((G,), n, dtype=torch.int64, device=dev)
     first.scatter_reduce_(0, inverse, rows, "amin")
     counts = torch.zeros(G, dtype=torch.int64, device=dev)
@@ -201,7 +211,7 @@ def masked_grouped_count_distinct(mask, key_arrays, values, n=None):
     order): the number of distinct 64-bit payloads of ``values`` among
     its rows. Returns int64[G]."""
     n = _rows(mask, key_arrays, (values,), n)
-    rows, inverse, G = _group_rows(mask, key_arrays, n)
+    rows, inverse, G = _group_rows(mask, key_arrays, n, values.device)
     out = torch.zeros(G, dtype=torch.int64, device=rows.device)
     if G:
         pairs = torch.unique(torch.stack([inverse, widen(values[:n])[rows]], 1), dim=0)

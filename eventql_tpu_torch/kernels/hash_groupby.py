@@ -33,22 +33,25 @@ in the hash tier, a table keyed by (group, payload)
 
 The direct tiers return one entry per slot, empty slots with count 0
 (no group), and need no readback; the hash tier reads the group count
-before it allocates the aggregates. It is bound by bytes (each key,
-value and mask stream read once).
+before it allocates the aggregates, and returns its groups dense. It is
+bound by bytes (each key, value and mask stream read once).
 
 ``hash_groupby`` launches the kernels for CUDA tensors and uses the
 plain version (``hash_groupby_plain``: ``masked_grouped_aggregate`` and
 ``masked_grouped_count_distinct`` of kernels/groupby.py, and a check
 that every masked-in key lies in its given span) for CPU tensors only;
-both return a ``Grouped``, and both follow kernels/groupby.py's
+both return a ``Grouped`` on the caller's ``device``, and both follow kernels/groupby.py's
 contract: exact counts and integer sums, min / max of u64 streams in
 unsigned order, NaN that wins a min / max / mean, -0.0 read as +0.0 by
 min / max, float sums in no guaranteed order. Groups come in no
 particular order (the plain version: ascending keys; the kernel: slot
-or hash order); ``in_first_row_order`` drops empty slots and puts the
-rest in the order of their first rows. ``LAUNCHES`` counts the
-wrapper's calls that launched the kernels, ``FORMS`` the launches by
-tier and by count_distinct form.
+or hash order); ``compact_groups`` drops empty slots on the tensors'
+device, puts the rest in the order of their first rows and gathers
+what the caller reads of each group, so that only O(groups) words
+leave the device (the counterpart of the JAX route's
+``_device_compact_groups``, eventql_tpu/exec/device_exec.py).
+``LAUNCHES`` counts the wrapper's calls that launched the kernels,
+``FORMS`` the launches by tier and by count_distinct form.
 """
 
 from __future__ import annotations
@@ -88,22 +91,43 @@ class Grouped(NamedTuple):
     """G groups (or slots: an empty slot has count 0 and is no group):
     each one's smallest row index, its row count, one tensor per value
     stream (int64, u64 as bit patterns, or float64), and one per
-    count_distinct stream (int64)."""
+    count_distinct stream (int64). ``dense``: every entry is a group (the
+    hash tier and the plain version), so no slot needs dropping."""
 
     first_index: torch.Tensor
     counts: torch.Tensor
     aggregates: Tuple[torch.Tensor, ...]
     distinct: Tuple[torch.Tensor, ...]
+    dense: bool = False
+
+
+def compact_groups(g: Grouped, order="first_row", gather: Sequence[torch.Tensor] = ()):
+    """The groups of ``g`` on its device: the occupied slots (count > 0;
+    all of a dense result), ordered by their first rows (``order`` =
+    "first_row", the host engine's group order), by a per-slot tensor
+    (``order`` a tensor of unique values over the groups) or left in slot
+    order (None). Returns (the groups as a dense Grouped, each ``gather``
+    stream's value at each group's first row). No device -> host copy
+    but the size of ``torch.nonzero`` where slots are dropped."""
+    keep = None if g.dense else torch.nonzero(g.counts > 0).flatten()
+    if order is not None:
+        key = g.first_index if isinstance(order, str) else order
+        key = key if keep is None else key[keep]
+        by = torch.sort(key, stable=True).indices
+        keep = by if keep is None else keep[by]
+    if keep is None:
+        out = g
+    else:
+        out = Grouped(g.first_index[keep], g.counts[keep],
+                      tuple(a[keep] for a in g.aggregates),
+                      tuple(d[keep] for d in g.distinct))
+    return out._replace(dense=True), [s[out.first_index] for s in gather]
 
 
 def in_first_row_order(g: Grouped) -> Grouped:
     """The groups (empty slots dropped), ordered by their first rows (the
     host engine's group order)."""
-    occupied = torch.nonzero(g.counts > 0).flatten()
-    order = occupied[torch.argsort(g.first_index[occupied])]
-    return Grouped(g.first_index[order], g.counts[order],
-                   tuple(a[order] for a in g.aggregates),
-                   tuple(d[order] for d in g.distinct))
+    return compact_groups(g)[0]
 
 
 def table_slots(n: int) -> int:
@@ -213,7 +237,7 @@ def _check_spans(spans, streams, what):
 
 
 def _check(keys, n, mask, values, kinds, values_unsigned, distinct, key_spans,
-           distinct_spans):
+           distinct_spans, device):
     n = int(n)
     keys, values, distinct = tuple(keys), tuple(values), tuple(distinct)
     if not 0 <= n < MAX_ROWS:
@@ -232,14 +256,21 @@ def _check(keys, n, mask, values, kinds, values_unsigned, distinct, key_spans,
         if mask.dtype not in (torch.bool, torch.uint8):
             raise TypeError("mask: need a bool or uint8 tensor")
         streams.append(("mask", mask))
-    device = streams[0][1].device if streams else torch.device("cpu")
+    if device is not None:
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    elif streams:
+        device = streams[0][1].device
+    else:
+        raise ValueError("no stream to take the device from: pass device")
     for name, t in streams:
         if t.dim() != 1 or not t.is_contiguous():
             raise ValueError(f"{name}: need a contiguous 1-d tensor")
         if t.shape[0] < n:
             raise ValueError(f"{name}: {t.shape[0]} rows < n = {n}")
         if t.device != device:
-            raise ValueError(f"{name}: on {t.device}, first stream on {device}")
+            raise ValueError(f"{name}: on {t.device}, the call on {device}")
         _key_dt(t)  # raises on a dtype the kernel does not read
     for kind, v, uns in zip(kinds, values, values_unsigned):
         if kind not in AGG_KINDS:
@@ -248,6 +279,8 @@ def _check(keys, n, mask, values, kinds, values_unsigned, distinct, key_spans,
     for t in distinct:
         if t.dtype == torch.float64:
             raise TypeError("count_distinct needs an integer stream")
+    if not keys and key_spans is None:
+        key_spans = ()  # no key: one slot, a direct tier
     key_spans = _check_spans(key_spans, keys, "key")
     distinct_spans = _check_spans(distinct_spans, distinct, "distinct")
     return (n, keys, values, tuple(values_unsigned), distinct, key_spans, distinct_spans,
@@ -271,17 +304,20 @@ def _outside_span(streams, spans, mask, n, what):
 
 
 def hash_groupby_plain(keys, n, mask=None, values=(), kinds=(), values_unsigned=None,
-                       distinct=(), key_spans=None, distinct_spans=None) -> Grouped:
-    """Plain PyTorch version of ``hash_groupby`` on the tensors' device:
-    the groups only (no empty slot), after checking that every masked-in
-    key and count_distinct payload lies in its given span."""
-    n, keys, values, uns, distinct, key_spans, distinct_spans, _dev = _check(
-        keys, n, mask, values, kinds, values_unsigned, distinct, key_spans, distinct_spans)
+                       distinct=(), key_spans=None, distinct_spans=None, *,
+                       device=None) -> Grouped:
+    """Plain PyTorch version of ``hash_groupby`` on ``device``: the groups
+    only (no empty slot), after checking that every masked-in key and
+    count_distinct payload lies in its given span."""
+    n, keys, values, uns, distinct, key_spans, distinct_spans, device = _check(
+        keys, n, mask, values, kinds, values_unsigned, distinct, key_spans, distinct_spans,
+        device)
     _outside_span(keys, key_spans, mask, n, "key")
     _outside_span(distinct, distinct_spans, mask, n, "count_distinct")
-    first, counts, aggs = masked_grouped_aggregate(mask, keys, values, tuple(kinds), uns, n)
+    first, counts, aggs = masked_grouped_aggregate(mask, keys, values, tuple(kinds), uns, n,
+                                                   device)
     return Grouped(first, counts, aggs, tuple(
-        masked_grouped_count_distinct(mask, keys, d, n) for d in distinct))
+        masked_grouped_count_distinct(mask, keys, d, n) for d in distinct), dense=True)
 
 
 _lib_ready = False
@@ -347,13 +383,13 @@ def _chunks(nvalues):
             for lo in range(0, max(1, nvalues), MAX_VALUES)]
 
 
-def _grouped_of(outs, values, chunks, dist):
+def _grouped_of(outs, values, chunks, dist, dense):
     counts, first = outs[0][0], outs[0][1]
     aggs = []
     for out, chunk in zip(outs, chunks):
         aggs += [out[2 + i].view(torch.float64) if values[j].dtype == torch.float64
                  else out[2 + i] for i, j in enumerate(chunk)]
-    return Grouped(first, counts, tuple(aggs), tuple(dist))
+    return Grouped(first, counts, tuple(aggs), tuple(dist), dense)
 
 
 def _hash_tier(lib, keys, n, mask, values, kinds, uns, distinct, device, stream):
@@ -389,7 +425,7 @@ def _hash_tier(lib, keys, n, mask, values, kinds, uns, distinct, device, stream)
                 seen.data_ptr(), cap, out.data_ptr(), G, stream))
             dist.append(out)
             FORMS["set"] += 1
-    return _grouped_of(outs, values, chunks, dist)
+    return _grouped_of(outs, values, chunks, dist, True)
 
 
 def _direct_tier(lib, tier, keys, n, mask, values, kinds, uns, distinct, key_spans,
@@ -425,7 +461,7 @@ def _direct_tier(lib, tier, keys, n, mask, values, kinds, uns, distinct, key_spa
             DISTINCT_FORMS.index(form), scratch.data_ptr(), words, out.data_ptr(), stream))
         dist.append(out)
         FORMS[form] += 1
-    return _grouped_of(outs, values, chunks, dist)
+    return _grouped_of(outs, values, chunks, dist, False)
 
 
 def hash_groupby(
@@ -438,6 +474,8 @@ def hash_groupby(
     distinct: Sequence[torch.Tensor] = (),
     key_spans: Optional[Sequence] = None,
     distinct_spans: Optional[Sequence] = None,
+    *,
+    device: Optional[torch.device] = None,
 ) -> Grouped:
     """Group the first ``n`` rows that ``mask`` keeps by the tuple of
     ``keys`` (each compared by its stored bits; none: one group) and
@@ -452,12 +490,19 @@ def hash_groupby(
     in ``[base, base + span)``; ``distinct_spans`` the same of the
     count_distinct payloads. They choose the tier (``tier_of``); in the
     direct tiers the result has one entry per slot, an empty slot with
-    count 0."""
+    count 0.
+
+    ``device``: where the call runs and its result lies; every stream
+    must be on it. It may be left out only where a stream gives it: a
+    call with no stream (no key, no value, no mask: the first ``n`` rows
+    as one group) raises without it. On a CUDA device the kernels launch,
+    on the CPU the plain version runs."""
     n, keys, values, uns, distinct, key_spans, distinct_spans, device = _check(
-        keys, n, mask, values, kinds, values_unsigned, distinct, key_spans, distinct_spans)
+        keys, n, mask, values, kinds, values_unsigned, distinct, key_spans, distinct_spans,
+        device)
     if device.type != "cuda":
         return hash_groupby_plain(keys, n, mask, values, kinds, uns, distinct, key_spans,
-                                  distinct_spans)
+                                  distinct_spans, device=device)
     from eventql_tpu_torch.kernels.groupby_agg import smem_optin
 
     lib = _lib()

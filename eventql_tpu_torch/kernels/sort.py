@@ -28,13 +28,15 @@ import torch
 from eventql_tpu_torch.kernels.groupby import sortable_u64
 
 # device -> host copies the host waits on (each one a synchronisation
-# on a CUDA device), counted since import
+# on a CUDA device), and the bytes they copied, counted since import
 READBACKS = 0
+READBACK_BYTES = 0
 
 
 def read_host(t: torch.Tensor) -> "np.ndarray":
-    global READBACKS
+    global READBACKS, READBACK_BYTES
     READBACKS += 1
+    READBACK_BYTES += t.numel() * t.element_size()
     return t.cpu().numpy()
 
 

@@ -494,25 +494,28 @@ class _Partial(NamedTuple):
 
 def _compact(res, keys, g0: int):
     """The occupied groups of a ``hash_groupby`` result (a direct tier
-    returns every slot): key bits, counts, aggregates, global first rows."""
-    occ = torch.nonzero(res.counts > 0).flatten()
-    first = res.first_index[occ]
-    return ([k[first] for k in keys], res.counts[occ], [a[occ] for a in res.aggregates],
-            first + g0)
+    returns every slot), in slot order: key bits, counts, aggregates,
+    global first rows."""
+    from eventql_tpu_torch.kernels.hash_groupby import compact_groups
+
+    g, kc = compact_groups(res, order=None, gather=keys)
+    return kc, g.counts, list(g.aggregates), g.first_index + g0
 
 
-def _local_partial(keys, spans, n, mask, values, kinds, unsigned, distinct, dspans, g0):
-    """One shard's H1 partial. A mean is summed here and divided after the
-    merge."""
+def _local_partial(keys, spans, n, mask, values, kinds, unsigned, distinct, dspans, g0,
+                   device):
+    """One shard's H1 partial on ``device``. A mean is summed here and
+    divided after the merge."""
     from eventql_tpu_torch.kernels.hash_groupby import hash_groupby
 
     local_kinds = ["sum" if k == "mean" else k for k in kinds]
-    res = hash_groupby(keys, n, mask, values, local_kinds, unsigned, (), spans)
+    res = hash_groupby(keys, n, mask, values, local_kinds, unsigned, (), spans,
+                       device=device)
     kc, counts, aggs, first = _compact(res, keys, g0)
     del res
     pairs = []
     for d, dspan in zip(distinct, dspans):
-        pres = hash_groupby([*keys, d], n, mask, key_spans=[*spans, dspan])
+        pres = hash_groupby([*keys, d], n, mask, key_spans=[*spans, dspan], device=device)
         pk, _counts, _aggs, pfirst = _compact(pres, [*keys, d], g0)
         pairs.append((pk, pfirst))
         del pres
@@ -561,38 +564,35 @@ def _merge_gathered(groups, pairs, spans, kinds, unsigned, dspans) -> list:
     """``_merge``'s H1 work on the gathered partials: the merged keys,
     counts, aggregates, first rows and count_distinct counts, as one list
     (the gathered, empty columns where no shard has a group)."""
-    from eventql_tpu_torch.kernels.hash_groupby import hash_groupby
+    from eventql_tpu_torch.kernels.hash_groupby import compact_groups, hash_groupby
 
     nk = len(spans)
     keys, counts, aggs, first = groups[:nk], groups[nk], groups[nk + 1:-1], groups[-1]
     G = counts.shape[0]
+    device = counts.device
     if G == 0:
-        return [*groups, *(torch.zeros(0, dtype=torch.int64, device=counts.device)
+        return [*groups, *(torch.zeros(0, dtype=torch.int64, device=device)
                            for _ in dspans)]
     merge_kinds = ["sum", *(_MERGE_KIND.get(k, "sum") for k in kinds), "min"]
     res = hash_groupby(keys, G, None, [counts, *aggs, first], merge_kinds,
-                       [False, *unsigned, False], (), spans)
-    occ = torch.nonzero(res.counts > 0).flatten()
-    m_first = res.aggregates[-1][occ]
-    order = occ[torch.argsort(m_first)]
-    rows = res.first_index[order]
-    out = [*(k[rows] for k in keys), res.aggregates[0][order],
-           *(a[order] for a in res.aggregates[1:-1]), res.aggregates[-1][order]]
-    del res
+                       [False, *unsigned, False], (), spans, device=device)
+    # in the order of the merged first global rows
+    merged, mkeys = compact_groups(res, order=res.aggregates[-1], gather=keys)
+    out = [*mkeys, *merged.aggregates]
+    ng = merged.counts.shape[0]
+    del res, merged
     for (*pkeys, pfirst), dspan in zip(pairs, dspans):
         # the same pair on several shards: once, with its first row
         dedup = hash_groupby(pkeys, pfirst.shape[0], None, [pfirst], ["min"], None, (),
-                             [*spans, dspan])
-        occ = torch.nonzero(dedup.counts > 0).flatten()
-        at = dedup.first_index[occ]
-        per_key = hash_groupby([k[at] for k in pkeys[:nk]], occ.shape[0], None,
-                               [dedup.aggregates[0][occ]], ["min"], None, (), spans)
-        occ = torch.nonzero(per_key.counts > 0).flatten()
+                             [*spans, dspan], device=device)
+        dedup, at_keys = compact_groups(dedup, order=None, gather=pkeys[:nk])
+        per_key = hash_groupby(at_keys, dedup.counts.shape[0], None, [dedup.aggregates[0]],
+                               ["min"], None, (), spans, device=device)
         # a key's first pair row is the key's first row: the order above
-        occ = occ[torch.argsort(per_key.aggregates[0][occ])]
-        if occ.shape[0] != order.shape[0]:
+        per_key, _ = compact_groups(per_key, order=per_key.aggregates[0])
+        if per_key.counts.shape[0] != ng:
             raise AssertionError("count_distinct groups differ from the merged groups")
-        out.append(per_key.counts[occ])
+        out.append(per_key.counts)
     return out
 
 
@@ -1118,7 +1118,7 @@ def _shard_partials(mesh, mask, key_arrays, value_arrays, idx, kinds, unsigned,
         [k[s] for k in key_arrays], [None] * nk, n_local,
         None if mask is None else mask[s], [value_arrays[j][s] for j in idx], kinds,
         unsigned, [] if distinct is None else [distinct[s]],
-        [] if distinct is None else [None], s * n_local))
+        [] if distinct is None else [None], s * n_local, mesh.devices[s]))
 
 
 def _in_key_order(keys, keys_unsigned):
@@ -1243,7 +1243,7 @@ def distributed_grouped_aggregate_sharded(mesh: Mesh, mask, key_arrays, value_ar
     n_local entries with the valid ones first; here a shard's entries end
     with its last group."""
     from eventql_tpu_torch.kernels.groupby import sortable_u64
-    from eventql_tpu_torch.kernels.hash_groupby import hash_groupby
+    from eventql_tpu_torch.kernels.hash_groupby import compact_groups, hash_groupby
 
     P, nk = mesh.size, len(key_arrays)
     if P & (P - 1):
@@ -1290,15 +1290,12 @@ def distributed_grouped_aggregate_sharded(mesh: Mesh, mask, key_arrays, value_ar
     out_keys, out_aggs, valid, edges = [None] * P, [None] * P, [None] * P, [None] * P
     for s in mesh.local:
         res = hash_groupby([k[s] for k in keys_s], L, ~inv_s[s], [a[s] for a in states_s],
-                           state_kinds, state_uns)
-        occ = torch.nonzero(res.counts > 0).flatten()
-        order = occ[torch.argsort(res.first_index[occ])]
-        at = res.first_index[order]
-        out_keys[s] = [k[s][at] for k in keys_s]
-        out_aggs[s] = [a[order] for a in res.aggregates]
-        edges[s] = order.shape[0]
-        valid[s] = torch.ones(edges[s], dtype=torch.bool, device=order.device)
-        del res, occ, order, at
+                           state_kinds, state_uns, device=mesh.devices[s])
+        res, out_keys[s] = compact_groups(res, gather=[k[s] for k in keys_s])
+        out_aggs[s] = list(res.aggregates)
+        edges[s] = res.counts.shape[0]
+        valid[s] = torch.ones(edges[s], dtype=torch.bool, device=mesh.devices[s])
+        del res
 
     def result():
         return ([_local_map(mesh, lambda s, c=c: out_keys[s][c]) for c in range(nk)],

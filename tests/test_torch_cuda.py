@@ -65,13 +65,18 @@ def test_sql_route_on_the_card_equals_host_engine(cuda_device):
     assert per_query["join_big_dim"] == {"probe_join_gid": 1, "groupby_agg": 1}
     assert run["launches_by_path"]["join"]["dim_join_gid"] == 4 * 2  # J1 too
     assert run["e2e"]["join_big_dim"]["readbacks"] == 1
-    for name in chip_smoke.GENERAL_SQL:
+    general = {**chip_smoke.GENERAL_SQL, **chip_smoke.COMPACTION_SQL}
+    for name in general:
         assert per_query[name] == {"hash_groupby": 1}
-        # a direct tier: the slots come back in one copy
+        # compacted on the card, one copy (the hash tier: the group count first)
         assert run["e2e"][name]["tier"] == chip_smoke.GENERAL_TIERS[name]
-        assert run["e2e"][name]["readbacks"] == 1
+        hash_tier = "hash" in chip_smoke.GENERAL_TIERS[name]
+        assert run["e2e"][name]["readbacks"] == (2 if hash_tier else 1)
+    # the sparse span: O(groups) words read back, not O(slots)
+    sparse = run["e2e"]["G6_sparse_span"]
+    assert sparse["readback_bytes"] <= 8 * 6 * sparse["groups"] < 8 * (1 << 20)
     assert per_query[chip_smoke.J1[0]] == {"dim_join_gid": 1, "hash_groupby": 1}
-    assert run["launches_by_path"]["general_group_by"]["hash_groupby"] == 5 * 2
+    assert run["launches_by_path"]["general_group_by"]["hash_groupby"] == len(general) * 2
     # each recorded call, repeated: kernel and plain version agree
     times = chip_smoke.phase_times(cuda_device, run["calls"])
     assert set(times) == KERNELS
@@ -403,6 +408,46 @@ def test_hash_tier_rule_mirrors_the_launchers(cuda_device):
             assert hg.launcher_distinct_form(slots, span, rows, smem) == form == (
                 hg.distinct_form(slots, None if span is None else (0, span, False), rows,
                                  smem))
+
+
+@pytest.mark.parametrize("n", [0, 1, 9, 100_003, 1 << 22])
+def test_keyless_hash_groupby_launches_on_the_card(cuda_device, n):
+    """No key, no value, no mask: the first n rows as one group, launched
+    on the device the call names (the shared tier's one slot), equal to
+    the plain version there."""
+    import chip_smoke
+    from eventql_tpu_torch.kernels import hash_groupby as hg
+
+    before, forms = hg.LAUNCHES["hash_groupby"], dict(hg.FORMS)
+    got = hg.hash_groupby([], n, device=cuda_device)
+    want = hg.hash_groupby_plain([], n, device=cuda_device)
+    torch.cuda.synchronize()
+    assert hg.LAUNCHES["hash_groupby"] - before == 1
+    assert chip_smoke._forms_since(forms) == {"shared": 1}
+    assert got.counts.is_cuda and want.counts.is_cuda
+    ok, err = chip_smoke.same_grouped(got, want)
+    assert ok, f"max |diff| {err}"
+    assert hg.in_first_row_order(got).counts.tolist() == ([n] if n else [])
+
+
+def test_keyless_count_launches_on_the_card(cuda_device):
+    """SELECT count(1) FROM t through Runtime(device="cuda"): the general
+    route, one launch of the hash aggregate, the host engine's answer."""
+    import chip_smoke
+    from eventql_tpu_torch.exec import device_exec
+    from eventql_tpu_torch.exec.runtime import Runtime
+    from eventql_tpu_torch.kernels import hash_groupby as hg
+
+    n = 1 << 20
+    cols, dictionary = chip_smoke.make_table(n, seed=8)
+    provider = chip_smoke.provider_of(cols, dictionary, n)
+    rt, host = Runtime(device=cuda_device), Runtime(device=None)
+    for sql in ("select count(1) from t;", "select count(1) from t where v < 800;"):
+        before = (device_exec.GENERAL_GROUPBY_COUNT, hg.LAUNCHES["hash_groupby"])
+        got = chip_smoke.run_query(rt, provider, sql).rows
+        assert (device_exec.GENERAL_GROUPBY_COUNT, hg.LAUNCHES["hash_groupby"]) == (
+            before[0] + 1, before[1] + 1), sql
+        assert got == chip_smoke.run_query(host, provider, sql).rows, sql
 
 
 @pytest.mark.parametrize("tier", ["shared", "global", "hash"])

@@ -117,13 +117,13 @@ def test_plain_version_checks_only_masked_in_rows():
 
 
 def _as_slots(keys, n, mask=None, values=(), kinds=(), values_unsigned=None, distinct=(),
-              key_spans=None, distinct_spans=None):
+              key_spans=None, distinct_spans=None, device=None):
     """What a direct tier returns (one entry per slot of the key spans'
     mixed-radix number, an empty slot with count 0 and first row
     INT64_MAX), made from the plain version's groups; the hash tier's
     groups as they are."""
     g = hg.hash_groupby_plain(keys, n, mask, values, kinds, values_unsigned, distinct,
-                              key_spans, distinct_spans)
+                              key_spans, distinct_spans, device=device)
     if hg.tier_of(key_spans, min(len(values), hg.MAX_VALUES), n, SMEM) == "hash":
         return g
     slot = torch.zeros_like(g.first_index)
@@ -150,9 +150,9 @@ def test_in_first_row_order_drops_empty_slots():
     o = hg.in_first_row_order(g)
     assert (o.first_index.tolist(), o.counts.tolist(), o.aggregates[0].tolist()) == (
         [0, 1, 3], [2, 2, 1], [7, 9, 8])
-    first, counts, _extra, aggs, _dist = device_exec._grouped_to_host(g)
-    assert (first.tolist(), counts.tolist(), aggs[0].tolist()) == (
-        [0, 1, 3], [2, 2, 1], [7, 9, 8])
+    first, counts, aggs, _dist, (keys,) = device_exec._read_groups(g, (k,))
+    assert (first.tolist(), counts.tolist(), aggs[0].tolist(), keys.tolist()) == (
+        [0, 1, 3], [2, 2, 1], [7, 9, 8], [3, 1, 0])
 
 
 # -- the spans the routes derive -------------------------------------------------

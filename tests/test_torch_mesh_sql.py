@@ -397,10 +397,10 @@ def test_every_shard_takes_the_global_span(monkeypatch):
     real = hash_groupby.hash_groupby
 
     def spy(keys, n, mask=None, values=(), kinds=(), values_unsigned=None, distinct=(),
-            key_spans=None, distinct_spans=None):
+            key_spans=None, distinct_spans=None, *, device=None):
         spans.append(None if key_spans is None else list(key_spans))
         return real(keys, n, mask, values, kinds, values_unsigned, distinct, key_spans,
-                    distinct_spans)
+                    distinct_spans, device=device)
 
     monkeypatch.setattr(hash_groupby, "hash_groupby", spy)
     q = "select k, count(1), max(v) from t group by k;"
