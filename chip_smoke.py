@@ -14,7 +14,16 @@ Phases (any mismatch or exception ends the run with a non-zero code):
      count_distinct forms (shared bitmap, global bitmap, set) at their
      edges (u32 keys of 2^31 and more, a NULL key outside the stats, a
      negative base, one hot key, streams off a 16-byte boundary), and its
-     tier rule against the launcher's at the boundaries;
+     tier rule against the launcher's at the boundaries; the probe
+     kernels place_runs (runs of 256 and 4096 elements covering 2^24 u32
+     words, fewer runs than slots into a given ``out``, R not a multiple
+     of the run, runs leaving the array, a source off a 16-byte boundary)
+     and int8_form (each form at (8, 128) and 2^24 elements around +-128,
+     and off a 16-byte boundary) against their plain versions, tolerance
+     0; then their own path, the entry points of the port's probes
+     (eventql_tpu_torch/scripts: probe_radix's run placement at 2^25
+     words, probe_int8_ops at 2^24 elements), launch counts set to 0 just
+     before and read just after, each result checked and timed there;
   4. main paths: SQL text -> Runtime(device="cuda") -> ResultList on a
      partition-sized table (2^26 rows, ~2.8 GB on the device): first the
      GROUP BY sum/count queries, then the general GROUP BY queries G1-G7
@@ -188,7 +197,9 @@ Phases (any mismatch or exception ends the run with a non-zero code):
      /api/v1/mapreduce/execute: its pairs equal to numpy. Each step's
      route counters and launch counts are read just before and just after
      it; each kernel's first call in the phase is held against its plain
-     version.
+     version. (e) also checks the top-k over the imported ``ts`` (u64
+     values above 2^53, ROADMAP C15). Phase 8 logs the storage codec's
+     library (built from native/*.cc) and fails if it is not loaded.
 
 With EVQL_PARENT_JOIN_CU naming an earlier join.cu whose
 evql_dim_join_gid has this one's C interface (the argument types
@@ -256,6 +267,7 @@ from eventql_tpu_torch.kernels import extract as ex
 from eventql_tpu_torch.kernels import groupby_agg as ga
 from eventql_tpu_torch.kernels import hash_groupby as hg
 from eventql_tpu_torch.kernels import join as kj
+from eventql_tpu_torch.kernels import probes as kp
 from eventql_tpu_torch.kernels import sort as ksort
 from eventql_tpu_torch.mapreduce.distributed import DistributedMapReduceScheduler
 from eventql_tpu_torch.native import _build as native_build
@@ -269,14 +281,14 @@ from eventql_tpu_torch.parallel.mesh_provider import MeshTableProvider
 from eventql_tpu_torch.plan import nodes as qn
 from eventql_tpu_torch.plan.coder import encode_plan
 from eventql_tpu_torch.plan.exprs import ColumnReferenceNode
+from eventql_tpu_torch.scripts import HBM_BYTES_PER_S, cuda_ms, probe_int8_ops, probe_radix
 from eventql_tpu_torch.server.http_api import EventQLServer
 from eventql_tpu_torch.server.listener import Listener
 from eventql_tpu_torch.server.native_tcp import NativeTCPClient, NativeTCPServer
 
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
-# the float32 rate outside the tensor cores, taken as the rate of the
-# 32-bit integer compares and adds these kernels do
-HBM_BYTES_PER_S = 3.35e12
+# the published float32 rate of one H100 SXM outside the tensor cores (NVIDIA
+# data sheet), taken as the rate of the 32-bit integer compares and adds
+# these kernels do; its HBM3 bandwidth is the probes' HBM_BYTES_PER_S
 ALU_OPS_PER_S = 67e12
 
 N_ROWS = 1 << 26  # the partition
@@ -865,6 +877,14 @@ _KERNELS = {
 }
 
 
+# the kernels of the repository's TPU probes (scripts/probe_*.py): their own
+# path is the port's probes (eventql_tpu_torch/scripts), not a query
+_PROBE_KERNELS = {
+    "place_runs": _Kernel(kp, "place_runs"),
+    "int8_form": _Kernel(kp, "int8_form"),
+}
+
+
 def launch_counts():
     return {name: k.launches for name, k in _KERNELS.items()}
 
@@ -896,8 +916,123 @@ def check_extract(label, got, want, values, threshold, cap, rows):
     return kept
 
 
+N_PROBE_CASE_WORDS = 1 << 24  # phase 3's place_runs and int8_form cases
+
+
+def place_runs_cases(n, device, rng):
+    """(label, keyword arguments of place_runs) over n u32 words (rows of
+    128): runs of 256 and 4096 elements that cover the array, each to a
+    random slot; fewer runs than slots into a given ``out`` (the rows no
+    run writes keep its -7); R not a multiple of the run; runs whose source
+    or destination leaves the array (not copied); a source, an ``out`` or
+    both off a 16-byte boundary (the scalar kernel), runs of 3 rows."""
+    R = n // kp.ROW_WORDS
+    words = rng.integers(0, 2**32, (R, kp.ROW_WORDS), dtype=np.uint32)
+    src = dev_tensor(words, device)
+
+    def offsets(*arrays):
+        return [torch.from_numpy(np.asarray(a, np.int32)).to(device) for a in arrays]
+
+    for elements in (256, 4096):
+        rows = elements // kp.ROW_WORDS
+        nruns = R // rows
+        so, do = offsets(np.arange(nruns) * rows, rng.permutation(nruns) * rows)
+        yield f"runs of {elements}, covering", dict(src=src, src_off=so, dst_off=do, rows=rows)
+    rows, slots = 8, R // 8
+    nruns = slots // 3
+    so, do = offsets(rng.choice(slots, nruns, replace=False) * rows,
+                     rng.choice(slots, nruns, replace=False) * rows)
+    yield "fewer runs than slots, out given", dict(
+        src=src, src_off=so, dst_off=do, rows=rows, out=torch.full_like(src, -7))
+    odd = src[: R - 3]
+    rows = 4
+    nruns = odd.shape[0] // rows
+    so, do = offsets(np.arange(nruns) * rows, rng.permutation(nruns) * rows)
+    yield "R not a multiple of the run", dict(src=odd, src_off=so, dst_off=do, rows=rows)
+    rows = 2
+    nruns = R // rows
+    s_off, d_off = np.arange(nruns) * rows, rng.permutation(nruns) * rows
+    s_off[:3] = [-2, R - 1, R]
+    d_off[3:6] = [-1, R - 1, R + 4]
+    so, do = offsets(s_off, d_off)
+    yield "runs leaving the array", dict(src=src, src_off=so, dst_off=do, rows=rows)
+    def off_boundary(t):
+        flat = torch.empty(t.numel() + 1, dtype=torch.int32, device=device)
+        return flat[1:].view(t.shape).copy_(t)
+
+    rows = 3
+    nruns = R // rows
+    so, do = offsets(np.arange(nruns) * rows, rng.permutation(nruns) * rows)
+    for label, s, o in (("src and out off", off_boundary(src), off_boundary(torch.zeros_like(src))),
+                        ("src on, out off", src, off_boundary(torch.zeros_like(src))),
+                        ("src off, out on", off_boundary(src), torch.zeros_like(src))):
+        yield f"{label} a 16-byte boundary", dict(src=s, src_off=so, dst_off=do, rows=rows, out=o)
+
+
+def int8_form_cases(n, device):
+    """(label, keyword arguments of int8_form): each form on the TPU
+    probe's (8, 128) tile, on (8, 128) and n values around +-128 (int8
+    wraps), and on n + 3 elements off a 16-byte boundary (the scalar
+    kernel and a ragged end)."""
+    tile = np.arange(8 * 128).reshape(8, 128)
+    inputs = [("the probe's tile", tile % 7, tile % 5),
+              ("(8, 128) around +-128", *probe_int8_ops.probe_inputs((8, 128), 21)),
+              (f"{n} around +-128", *probe_int8_ops.probe_inputs(n, 22))]
+    inputs = [(label, dev_tensor(a.astype(np.int32), device), dev_tensor(b.astype(np.int32), device))
+              for label, a, b in inputs]
+    a, b = probe_int8_ops.probe_inputs(n + 4, 23)
+    inputs.append((f"{n + 3} off a 16-byte boundary", dev_tensor(a, device)[1:],
+                   dev_tensor(b, device)[1:]))
+    for case in kp.INT8_CASES:
+        for label, a, b in inputs:
+            yield f"{case}, {label}", dict(a=a, b=b, case=case)
+
+
+def _fresh(kw):
+    """``kw`` with its ``out`` (written in place) copied to a buffer as far
+    off a 16-byte boundary as ``out`` is."""
+    out = kw.get("out")
+    if out is None:
+        return kw
+    skew = out.data_ptr() % 16 // out.element_size()
+    flat = torch.empty(out.numel() + skew, dtype=out.dtype, device=out.device)
+    return dict(kw, out=flat[skew:].view(out.shape).copy_(out))
+
+
+def probe_kernel_cases(device, n):
+    """place_runs and int8_form against their plain versions; returns the
+    number of cases and each kernel's largest |difference|."""
+    rng = np.random.default_rng(17)
+    cases, errs = 0, {name: 0 for name in _PROBE_KERNELS}
+    all_cases = [("place_runs", label, kw) for label, kw in place_runs_cases(n, device, rng)]
+    all_cases += [("int8_form", label, kw) for label, kw in int8_form_cases(n, device)]
+    for name, label, kw in all_cases:
+        k = _PROBE_KERNELS[name]
+        if "out off" in label:
+            check(_fresh(kw)["out"].data_ptr() % 16 != 0, f"{name} [{label}]: out is aligned")
+        got = k.wrapper(**_fresh(kw))
+        want = k.plain(**_fresh(kw))
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == want.dtype == torch.int32,
+              f"{name} [{label}]: shape/dtype differ from the plain version")
+        err = int((got.to(torch.int64) - want).abs().max()) if got.numel() else 0
+        check(torch.equal(got, want),
+              f"{name} [{label}]: kernel and plain version disagree (max |diff| {err})")
+        errs[name] = max(errs[name], err)
+        if label == "fewer runs than slots, out given":
+            kept = int((got == -7).all(dim=1).sum())
+            check(kept == got.shape[0] - kw["src_off"].shape[0] * kw["rows"],
+                  f"place_runs [{label}]: {kept} rows kept out's values")
+        cases += 1
+    for name, k in _PROBE_KERNELS.items():
+        check(k.launches > 0, f"{name}: no kernel launch in phase 3")
+    return cases, errs
+
+
 def phase_kernels(device, n):
-    """The case grid: options and widths the main path may not reach."""
+    """The case grid: options and widths the main path may not reach.
+    Returns place_runs' and int8_form's largest |difference| from their
+    plain versions."""
     rng = np.random.default_rng(7)
     cases = 0
     for label, values, threshold, cap, rows in extract_cases(n, rng):
@@ -982,8 +1117,71 @@ def phase_kernels(device, n):
                   f"dim_table({D}, {key_bytes}) is not the launcher's slot rule")
     for name, count in launch_counts().items():
         check(count > 0, f"{name}: no kernel launch in phase 3")
+    probe_cases, probe_errs = probe_kernel_cases(device, N_PROBE_CASE_WORDS)
     log(f"phase 3: {cases} kernel cases equal to their plain versions"
-        f" (n = {n}, tolerance 0)")
+        f" (n = {n}, tolerance 0); {probe_cases} place_runs and int8_form cases"
+        f" (n = {N_PROBE_CASE_WORDS})")
+    return probe_errs
+
+
+# -- phase 3 (b): the probes' path -------------------------------------------------
+
+PROBE_WORDS = 1 << 25  # probe_radix's default size
+PROBE_FORM_ELEMENTS = 1 << 24  # probe_int8_ops' default size
+
+
+def phase_probes(device):
+    """The path of place_runs and int8_form: the entry points of the
+    port's probes (python3 -m eventql_tpu_torch.scripts.probe_radix, its
+    run placement B; probe_int8_ops), with their launch counts set to 0
+    just before and read just after. Each probe checks every result
+    against its plain version and times kernel, plain version and library
+    call (CUDA events). Returns their numbers and the launches."""
+    t0 = time.perf_counter()
+    for k in _PROBE_KERNELS.values():
+        k.module.LAUNCHES[k.name] = 0
+    placement = probe_radix.probe_placement(PROBE_WORDS, device)
+    forms = probe_int8_ops.probe_forms(device, PROBE_FORM_ELEMENTS)
+    launches = {name: k.launches for name, k in _PROBE_KERNELS.items()}
+    for name, count in launches.items():
+        check(count > 0, f"{name}: not launched on the probes' path")
+    seconds = time.perf_counter() - t0
+    log(f"phase 3: the probes' placement ({PROBE_WORDS} words) and int8 forms"
+        f" ({PROBE_FORM_ELEMENTS} elements) in {seconds:.1f} s, launches {launches}")
+    return dict(placement=placement, forms=forms, launches=launches, seconds=seconds)
+
+
+def probe_kernel_rows(probe, errs):
+    """The {"kernels": [...]} rows of place_runs and int8_form from the
+    probes' run: place_runs at runs of 256 elements (the others under
+    ``other_shapes``), int8_form's first form (the others likewise)."""
+    place = probe["placement"][0]
+    form_name = kp.INT8_CASES[0]
+    form = probe["forms"][form_name]
+    common = dict(route="cuda", source="eventql_tpu_torch/kernels/csrc/probes.cu",
+                  bound_by="bytes")
+    return [
+        dict(common, name="place_runs", entry="evql_place_runs",
+             replaces="scripts/probe_radix.py:181 (placement; body _placement_kernel :162)",
+             launches=probe["launches"]["place_runs"],
+             launches_by_path={"probes": probe["launches"]["place_runs"]},
+             max_abs_err=errs["place_runs"], ms=place["ms"], plain_ms=place["plain_ms"],
+             bound_ms=place["bound_ms"], library_ms=place["library_ms"],
+             library="torch.Tensor.index_copy_ of whole runs (int64 run index)",
+             shape=f"{PROBE_WORDS} u32 words, runs of {place['run']} elements to a random slot",
+             bytes=place["bytes"], ns_per_run=place["ns_per_run"],
+             other_shapes={f"runs of {r['run']}": r for r in probe["placement"][1:]}),
+        dict(common, name="int8_form", entry="evql_int8_form",
+             replaces="scripts/probe_int8_ops.py:20 (run_case :17; bodies k_select_i8 :41,"
+                      " k_muli_i8 :49, k_convert_i8 :55, k_select_i8_var :60,"
+                      " k_mul_i32_to_i8 :67)",
+             launches=probe["launches"]["int8_form"],
+             launches_by_path={"probes": probe["launches"]["int8_form"]},
+             max_abs_err=errs["int8_form"], ms=form["ms"], plain_ms=form["plain_ms"],
+             bound_ms=form["bound_ms"], library_ms=form["library_ms"], library=form["library"],
+             shape=f"{PROBE_FORM_ELEMENTS} int32 pairs, {form_name}", bytes=form["bytes"],
+             other_shapes={c: f for c, f in probe["forms"].items() if c != form_name}),
+    ]
 
 
 # -- phase 4: the main paths --------------------------------------------------
@@ -1698,20 +1896,6 @@ def phase_main_path(device, n, n_prefix, reps):
 
 
 # -- phase 5: the main paths' shapes, checked and timed -------------------------
-
-
-def cuda_ms(fn, iters, warmup=2):
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
 
 
 def _streams_of(kw):
@@ -3284,6 +3468,9 @@ def phase_storage(device):
     """Phase 8. Returns the numbers of the {"storage": ...} line, the
     launches of each path and the first call of each kernel on them."""
     t0 = time.perf_counter()
+    codec = native._try_load()
+    check(codec is not None, "phase 8: the storage codec is not loaded")
+    log(f"phase 8: storage codec {codec._name}")
     n = STORAGE_ROWS
     cols, dictionary = make_table(n, seed=44)
     dims = make_dims(seed=43)
@@ -3308,7 +3495,7 @@ def phase_storage(device):
     out = dict(rows=n, commits=STORAGE_COMMITS, segment_bytes=seg_bytes,
                write_s_per_commit=write_s, reopen_s=reopen_s, stream=stream,
                queries=per_query, compaction=compaction, query_cache=qcache,
-               native_codec_loaded=native._try_load() is not None,
+               native_codec=codec._name,
                phase_s=time.perf_counter() - t0)
     log(f"phase 8: {len(per_query)} queries over the stored table equal to numpy at {n}"
         f" rows in {out['phase_s']:.1f} s")
@@ -5114,7 +5301,9 @@ def _mysqldump(path, stored, dictionary, m):
 
 def tools_mysql2evql(steps, port, stored, dictionary, tmp):
     """(e) mysql2evql --source_file of TOOLS_IMPORT_ROWS rows into the
-    server; the headline and G1 over the imported table against numpy."""
+    server; the headline, G1 and the top-k over ``ts`` (u64 values above
+    2^53: read exactly, ROADMAP C15) over the imported table against
+    numpy."""
     m = TOOLS_IMPORT_ROWS
     path = os.path.join(tmp, "dump.sql")
     _mysqldump(path, stored, dictionary, m)
@@ -5129,20 +5318,25 @@ def tools_mysql2evql(steps, port, stored, dictionary, tmp):
     want = {q[0]: (q[1], q[4], True) for q in queries(sub, dictionary, cat_lo=0)}
     want.update({name: (sql, rows, False)
                  for name, sql, rows in general_queries(sub, dictionary, m, cat_lo=0)})
+    want.update({q[0]: (q[1], q[4], False) for q in order_queries(sub, dictionary, m)})
+    check(int(sub["ts"].max()) > 1 << 53, "phase 12: no ts above 2^53 in the import")
     out = dict(rows=m, rows_wanted="about 15 s of import", import_s=import_s,
                rows_per_s=m / import_s, queries={})
-    for name, counter, kernel in (("headline", "FUSED_GROUPBY_COUNT", "groupby_agg"),
-                                  ("G1_min_max_mean", "GENERAL_GROUPBY_COUNT", "hash_groupby")):
+    # below FAST_TOPK_ROWS the top-k launches no kernel
+    for name, counter, kernel in (("headline", "FUSED_GROUPBY_COUNT", ("groupby_agg",)),
+                                  ("G1_min_max_mean", "GENERAL_GROUPBY_COUNT", ("hash_groupby",)),
+                                  ("topk_ts_desc", "SCAN_TOPK_COUNT", ())):
         sql, expected, as_set = want[name]
         step = f"mysql2evql_{name}"
         with steps.step(step):
             (rows, _b), ms = _timed(lambda: http_sql(port, sql.replace(" from t ", " from imp ")))
         check(_same(rows, expected, as_set), f"phase 12: {name} over the import differs")
         check(steps.routes[step][counter] == 1, f"phase 12: {name} over the import: {counter}")
-        steps.launched(step, (kernel,), f"{name} over the import")
+        steps.launched(step, kernel, f"{name} over the import")
         out["queries"][name] = dict(ms=ms, rows=len(rows))
     log(f"phase 12: mysql2evql imported {m} rows in {import_s:.1f} s"
-        f" ({m / import_s:.0f} rows a second); the headline and G1 over them equal to numpy")
+        f" ({m / import_s:.0f} rows a second); the headline, G1 and the top-k over ts"
+        f" over them equal to numpy")
     return out
 
 
@@ -5265,7 +5459,8 @@ def main():
     log(f"phase 2: kernels built in {secs:.1f} s: {_build.sources()}"
         + (f"; the earlier join.cu from ${PARENT_JOIN_CU}" if parent else ""))
 
-    phase_kernels(device, N_KERNEL_CASE_ROWS)
+    probe_errs = phase_kernels(device, N_KERNEL_CASE_ROWS)
+    probe = phase_probes(device)
     run = phase_main_path(device, N_ROWS, N_PREFIX_ROWS, REPS)
     times = phase_times(device, run["calls"], parent)
     context = _topk_context(device, run["calls"])
@@ -5340,6 +5535,7 @@ def main():
                     "hash_tier_peak_bytes"):
             if key in t:
                 kernels[-1][key] = t[key]
+    kernels += probe_kernel_rows(probe, probe_errs)
     log(json.dumps({"e2e_ms": run["e2e"], "rows": N_ROWS,
                     "launches_per_query": run["per_query"],
                     "device_bytes_held": run["resident"],

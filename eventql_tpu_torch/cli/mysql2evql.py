@@ -160,7 +160,16 @@ def _datetime_to_micros(val: str) -> int:
             return calendar.timegm(st) * 1_000_000
         except ValueError:
             continue
-    return int(float(val))  # already numeric
+    return _exact_int(val)  # already numeric
+
+
+def _exact_int(val: str) -> int:
+    """An integer literal read exactly: int() keeps a BIGINT above 2^53,
+    which int(float()) rounds; int(float()) only for a decimal literal."""
+    try:
+        return int(val)
+    except ValueError:
+        return int(float(val))
 
 
 def parse_inserts(sql: str, table: str, columns):
@@ -182,7 +191,7 @@ def parse_inserts(sql: str, table: str, columns):
                 if ctype == "datetime":
                     record[cname] = _datetime_to_micros(val)
                 elif ctype == "uint64" and not is_str:
-                    record[cname] = int(float(val))
+                    record[cname] = _exact_int(val)
                 elif ctype == "double" and not is_str:
                     record[cname] = float(val)
                 elif ctype == "boolean":
@@ -246,14 +255,9 @@ def stream_mysql_records(uri: str, table: str):
                         record[cname] = _datetime_to_micros(val)
                     elif ctype == "uint64":
                         # the text protocol sends integers as pure
-                        # decimal — int() keeps full 64-bit precision
-                        # (int(float()) corrupts BIGINTs above 2^53);
-                        # fall back for decimal-typed columns mapped
-                        # to uint64
-                        try:
-                            record[cname] = int(val)
-                        except ValueError:
-                            record[cname] = int(float(val))
+                        # decimal; a decimal-typed column mapped to
+                        # uint64 falls back to int(float())
+                        record[cname] = _exact_int(val)
                     elif ctype == "double":
                         record[cname] = float(val)
                     elif ctype == "boolean":

@@ -1,7 +1,9 @@
 """ctypes bindings for the native (C++) columnar codec.
 
-Loads native/build/libeventql_native.so, building it on first use if a
-toolchain is available. All entry points have numpy fallbacks in
+Loads the codec that eventql_tpu_torch/native/_build.py compiles from
+native/eventql_native.cc and native/json_shred.cc at first use into the
+port's build directory (nothing is written under native/; a failed
+compile raises with the compiler's output). All entry points have numpy fallbacks in
 eventql_tpu_torch.columnar.cstable; the native path is the production ingest
 codec (the reference's equivalent decoders are C++:
 io/cstable/columns/*, util/util/BitPackDecoder.cc).
@@ -11,15 +13,11 @@ from __future__ import annotations
 
 import ctypes
 import os
-import subprocess
 from typing import Optional
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_SO_PATH = os.path.abspath(
-    os.path.join(_NATIVE_DIR, "build", "libeventql_native.so")
-)
+from eventql_tpu_torch.native import _build
 
 _lib = None
 _load_failed = False
@@ -29,25 +27,11 @@ def _try_load() -> Optional[ctypes.CDLL]:
     global _lib, _load_failed
     if _lib is not None or _load_failed:
         return _lib
+    # the numpy fallbacks, chosen explicitly
     if os.environ.get("EVENTQL_TPU_NO_NATIVE") == "1":
         _load_failed = True
         return None
-    if not os.path.exists(_SO_PATH):
-        try:
-            subprocess.run(
-                ["make", "-C", os.path.abspath(_NATIVE_DIR)],
-                check=True,
-                capture_output=True,
-                timeout=120,
-            )
-        except Exception:
-            _load_failed = True
-            return None
-    try:
-        lib = ctypes.CDLL(_SO_PATH)
-    except OSError:
-        _load_failed = True
-        return None
+    lib = ctypes.CDLL(_build.codec_path())
 
     lib.evql_simdbp128_unpack.restype = ctypes.c_int
     lib.evql_simdbp128_unpack.argtypes = [

@@ -1,5 +1,5 @@
 """Build the port's C side: the C client library, the embedded server
-library and its C host.
+library and its C host, and the columnar storage codec.
 
 ``native/evql_client.c`` (the C client, read where it lies, with
 ``-I native`` for ``evql.h``), and this directory's ``evql_server.c``
@@ -7,7 +7,11 @@ library and its C host.
 ``embedded_server_smoke.c`` (a C host program of it) are compiled with
 ``cc`` at first use into ``build/<hash>/`` (not under version control),
 the hash taken over the sources, the header and the flags, so an
-unchanged checkout compiles once. Nothing is written under ``native/``.
+unchanged checkout compiles once. The storage codec
+(``native/eventql_native.cc`` + ``native/json_shred.cc``, read where they
+lie; ``columnar/native.py`` loads it) is compiled with ``g++`` the same
+way into a directory of its own (``codec_path``). Nothing is written
+under ``native/``.
 
 The server library leaves the ``Py*`` symbols undefined: a Python
 process that loads it with ``ctypes`` resolves them from its own
@@ -38,6 +42,10 @@ SERVER_LIB = "libevql_server.so"
 SMOKE_BIN = "embedded_server_smoke"
 
 CFLAGS = ["-O2", "-fPIC", "-Wall", "-Wextra"]
+
+CODEC_LIB = "libeventql_native.so"
+CODEC_SOURCES = ("eventql_native.cc", "json_shred.cc")
+CXXFLAGS = ["-O3", "-std=c++17", "-fPIC", "-shared"]
 
 _LOCK = threading.Lock()
 
@@ -97,31 +105,32 @@ def find_cc() -> str:
     return path
 
 
-def _out_dir(cc: str) -> str:
+def _hashed_dir(sources: Dict[str, str], commands: List[List[str]]) -> str:
     h = hashlib.sha256()
-    for name, path in sorted(_sources().items()):
-        with open(path, "rb") as f:
+    for name, src in sorted(sources.items()):
+        with open(src, "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
-    for cmd in _commands(cc, "<out>"):
+    for cmd in commands:
         h.update(" ".join(cmd[1:]).encode())
     return os.path.join(BUILD_DIR, h.hexdigest()[:16])
 
 
-def build() -> str:
-    """The directory that holds the three built files, compiling them
-    first if this checkout has not; raises NativeBuildError."""
+def _out_dir(cc: str) -> str:
+    return _hashed_dir(_sources(), _commands(cc, "<out>"))
+
+
+def _compile_into(out: str, commands) -> str:
+    """Run ``commands(tmp)`` unless ``out`` exists; returns ``out``."""
     with _LOCK:
-        cc = find_cc()
-        out = _out_dir(cc)
         if os.path.isdir(out):
             return out
         # built in a directory of this process's own and renamed whole, so
-        # a process that finds ``out`` finds all three files
+        # a process that finds ``out`` finds every file
         tmp = f"{out}.{os.getpid()}.tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
         try:
-            for cmd in _commands(cc, tmp):
+            for cmd in commands(tmp):
                 proc = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
                 if proc.returncode != 0:
                     raise NativeBuildError(
@@ -135,6 +144,29 @@ def build() -> str:
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         return out
+
+
+def build() -> str:
+    """The directory that holds the three built files, compiling them
+    first if this checkout has not; raises NativeBuildError."""
+    cc = find_cc()
+    return _compile_into(_out_dir(cc), lambda tmp: _commands(cc, tmp))
+
+
+def _codec_commands(cxx: str, out: str) -> List[List[str]]:
+    return [[cxx, *CXXFLAGS, "-o", os.path.join(out, CODEC_LIB),
+             *(os.path.join(NATIVE_DIR, f) for f in CODEC_SOURCES)]]
+
+
+def codec_path() -> str:
+    """The storage codec's library, compiled first if this checkout has
+    not; raises NativeBuildError (no g++, or the compiler's output)."""
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise NativeBuildError("no C++ compiler (g++) on $PATH: the storage codec cannot be built")
+    sources = {f: os.path.join(NATIVE_DIR, f) for f in CODEC_SOURCES}
+    out = _hashed_dir(sources, _codec_commands(cxx, "<out>"))
+    return os.path.join(_compile_into(out, lambda tmp: _codec_commands(cxx, tmp)), CODEC_LIB)
 
 
 def path(name: str) -> str:

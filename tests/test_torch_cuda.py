@@ -45,6 +45,30 @@ def test_kernels_equal_plain_versions_on_the_card(cuda_device):
     assert all(after[k] > before[k] for k in before)
 
 
+def test_probe_kernels_equal_plain_versions_on_the_card(cuda_device):
+    """place_runs and int8_form: chip_smoke.py phase 3's cases at 2^20
+    words (covering and partial runs, runs leaving the array, inputs off
+    a 16-byte boundary, int8 wrapping)."""
+    import chip_smoke
+    from eventql_tpu_torch.kernels import probes
+
+    before = dict(probes.LAUNCHES)
+    cases, errs = chip_smoke.probe_kernel_cases(cuda_device, 1 << 20)
+    assert cases > 20 and errs == {"place_runs": 0, "int8_form": 0}
+    assert all(probes.LAUNCHES[k] > before[k] for k in before)
+
+
+def test_probes_run_on_the_card(cuda_device):
+    """The three probes at 2^20 elements: every step checked and timed."""
+    from eventql_tpu_torch.scripts import probe_groupby_i8, probe_int8_ops, probe_radix
+
+    radix = probe_radix.main(["--n", str(1 << 20)])
+    assert all(r["ms"] > 0 for part in ("sorts", "placement", "histogram", "gather")
+               for r in radix[part])
+    assert probe_groupby_i8.main(["--rows", str(1 << 20)])["ms"] > 0
+    assert all(f["ms"] > 0 for f in probe_int8_ops.main(["--n", str(1 << 20)]).values())
+
+
 def test_sql_route_on_the_card_equals_host_engine(cuda_device):
     """2^22 rows: the smallest table whose single-key top-k takes the
     two histograms and the extraction kernel."""

@@ -184,7 +184,7 @@ for make in (lambda: Runtime(), lambda: Runtime(device="cuda"),
 # a CUDA tensor is never served by the plain version: without a card
 # the tensor cannot even be made, and the wrapper has no other path
 from eventql_tpu_torch.kernels import (
-    extract, groupby, groupby_agg, hash_groupby, join, sort)
+    extract, groupby, groupby_agg, hash_groupby, join, probes, sort)
 assert groupby_agg.LAUNCHES == {"groupby_agg": 0, "groupby_multi_agg": 0}
 assert hash_groupby.LAUNCHES == {"hash_groupby": 0}
 assert extract.LAUNCHES == {"extract_ge": 0}
@@ -200,6 +200,31 @@ g = hash_groupby.hash_groupby([torch.tensor([5, 3, 5])], 3, values=[torch.tensor
 assert (g.first_index.tolist(), g.counts.tolist(), g.aggregates[0].tolist()) == (
     [1, 0], [1, 2], [2, 4])
 assert hash_groupby.LAUNCHES == {"hash_groupby": 0}
+# the probes' kernels and scripts
+import contextlib, io
+from eventql_tpu_torch.scripts import probe_groupby_i8, probe_int8_ops, probe_radix
+src = torch.arange(4 * 128, dtype=torch.int32).view(4, 128)
+placed = probes.place_runs(src, torch.tensor([0, 2], dtype=torch.int32),
+                           torch.tensor([2, 0], dtype=torch.int32), 2)
+assert torch.equal(placed, torch.cat([src[2:], src[:2]]))
+assert probes.int8_form(torch.tensor([200, 3], dtype=torch.int32),
+                        torch.tensor([200, 4], dtype=torch.int32), "select_i8_value"
+                        ).tolist() == [-56, 0]
+with contextlib.redirect_stdout(io.StringIO()):
+    probe_radix.main(["--device", "cpu", "--n", "16384"])
+    probe_groupby_i8.main(["--device", "cpu", "--rows", "1000"])
+    probe_int8_ops.main(["--device", "cpu", "--n", "100"])
+for main in (probe_radix.main, probe_groupby_i8.main, probe_int8_ops.main):
+    try:
+        main([])
+    except RuntimeError as e:
+        assert "CUDA" in str(e)
+    else:
+        raise AssertionError("a probe ran on device='cuda' without a GPU")
+assert probes.LAUNCHES == {"place_runs": 0, "int8_form": 0}
+bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+       or m == "jaxlib" or m == "eventql_tpu" or m.startswith("eventql_tpu.")]
+assert not bad, bad
 print("ISOLATED-OK")
 """
 
@@ -646,4 +671,4 @@ def test_kernel_build_needs_a_compiler(tmp_path, monkeypatch):
         pytest.skip("a CUDA toolkit is installed here")
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.build_all()
-    assert _build.sources() == ["extract", "groupby_agg", "hash_groupby", "join"]
+    assert _build.sources() == ["extract", "groupby_agg", "hash_groupby", "join", "probes"]

@@ -340,6 +340,42 @@ def test_mysql2evql_file_import_answers_alike(tmp_path, capsys, dump, table, sql
     assert got[0] == 0 and got[1].startswith("imported ")
 
 
+# ROADMAP C15: a dump's BIGINT above 2^53, as an integer column and as a
+# numeric datetime, beside a decimal literal in a BIGINT column
+BIG = (1 << 53) + 1
+BIG_DUMP = ("CREATE TABLE `big` (\n  `id` bigint(20) unsigned NOT NULL,\n"
+            "  `v` bigint(20) unsigned NOT NULL,\n  `t` datetime,\n  PRIMARY KEY (`id`)\n);\n"
+            f"INSERT INTO `big` VALUES (1,{BIG},{BIG}),(2,12.75,'2020-01-02 03:04:05'),"
+            f"(3,{(1 << 64) - 1},{BIG + 2});\n")
+
+
+def test_dump_bigint_above_2_53_is_exact_in_the_port():
+    """The port reads a dump's integers with int() first (C15); the JAX
+    tool's int(float()) rounds 2^53 + 1 to 2^53."""
+    cols = PORT.mysql2evql.parse_create_table(BIG_DUMP, "big")[0]
+    assert cols == JAX.mysql2evql.parse_create_table(BIG_DUMP, "big")[0]
+    got = list(PORT.mysql2evql.parse_inserts(BIG_DUMP, "big", cols))
+    assert [(r["v"], r["t"]) for r in got] == [
+        (BIG, BIG), (12, 1577934245 * 1_000_000), ((1 << 64) - 1, BIG + 2)]
+    jax_rows = [(r["v"], r["t"]) for r in JAX.mysql2evql.parse_inserts(BIG_DUMP, "big", cols)]
+    assert jax_rows[:2] == [(1 << 53, 1 << 53), (12, 1577934245 * 1_000_000)]
+
+
+def test_mysql2evql_imports_a_bigint_above_2_53_exactly(tmp_path, capsys):
+    path = tmp_path / "big.sql"
+    path.write_text(BIG_DUMP)
+    server = _native(PORT)
+    try:
+        rc, out, _err = _run_main(PORT.mysql2evql.main, [
+            "--source_file", str(path), "--source_table", "big", "--port",
+            str(server.port)], capsys)
+        assert rc == 0 and out.startswith("imported 3 rows"), out
+        rows = _query(PORT, server.port, "select id, v from big order by id;")[0][1]
+    finally:
+        server.stop()
+    assert rows == [["1", str(BIG)], ["2", "12"], ["3", str((1 << 64) - 1)]]
+
+
 @pytest.fixture
 def mock_mysql():
     import threading
