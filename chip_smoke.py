@@ -19,11 +19,17 @@ Phases (any mismatch or exception ends the run with a non-zero code):
      words, fewer runs than slots into a given ``out``, R not a multiple
      of the run, runs leaving the array, a source off a 16-byte boundary)
      and int8_form (each form at (8, 128) and 2^24 elements around +-128,
-     and off a 16-byte boundary) against their plain versions, tolerance
-     0; then their own path, the entry points of the port's probes
-     (eventql_tpu_torch/scripts: probe_radix's run placement at 2^25
-     words, probe_int8_ops at 2^24 elements), launch counts set to 0 just
-     before and read just after, each result checked and timed there;
+     2^24 + 3 off a 16-byte boundary, and 1, 3, 4, 5 and one block's
+     elements and one either side, on and off the boundary) against their
+     plain versions, tolerance 0; extract_ge's cases (the look-back's
+     too: matches only in the last tile, the cap reached in the first,
+     one match a tile, n either side of a tile) also on values 1-3
+     elements off a 16-byte boundary; then the probes' own path, the
+     entry points of the port's probes (eventql_tpu_torch/scripts:
+     probe_radix's run placement at 2^25 words, probe_int8_ops at 2^24
+     elements), launch counts set to 0 just before and read just after,
+     each result checked and timed there, each int8 form then timed in
+     turns with its library call;
   4. main paths: SQL text -> Runtime(device="cuda") -> ResultList on a
      partition-sized table (2^26 rows, ~2.8 GB on the device): first the
      GROUP BY sum/count queries, then the general GROUP BY queries G1-G7
@@ -201,10 +207,14 @@ Phases (any mismatch or exception ends the run with a non-zero code):
      values above 2^53, ROADMAP C15). Phase 8 logs the storage codec's
      library (built from native/*.cc) and fails if it is not loaded.
 
-With EVQL_PARENT_JOIN_CU naming an earlier join.cu whose
-evql_dim_join_gid has this one's C interface (the argument types
-kernels/join.py gives it), phase 2 builds it too and phase 5 holds its
-small-table probe against this one and times it on the same inputs.
+With EVQL_PARENT_TREE naming an earlier tree of the repository (``git
+archive HEAD~1`` unpacked into an ignored directory), phase 2 imports
+that tree's kernel modules extract, join and probes apart from these and
+builds its kernels; each is then called through its own wrapper on the
+same inputs as this tree's and must agree with it: B4's small-table
+probe in phase 5 is timed beside this one, and every timed extract_ge
+call (phases 5, 6, 8, 10-12) and each int8 form of phase 3 in turns
+with it (earlier, this, this, earlier).
 
 Prints a JSON line {"mesh": ...}, one {"multihost": ...}, one {"storage": ...}, one
 {"fuzz": ...}, one {"serving": ...}, one {"cluster": ...} (the card's name and power
@@ -221,6 +231,7 @@ and, as the last line,
 
 import contextlib
 import ctypes
+import importlib
 import inspect
 import io
 import json
@@ -481,8 +492,12 @@ def table_form_edges(nsums, device):
 def extract_cases(n, rng):
     """Yield (label, values int32[n], threshold, cap, rows or None) for
     extract_ge: the corners of the compaction (no match, the ragged
-    tail, the cap, the int32 ends)."""
+    tail, the cap, the int32 ends) and of its look-back over tiles of
+    ex.TILE_ROWS rows (matches only in the last tile, the cap reached in
+    the first, one match a tile, n one row either side of a tile and at
+    two tiles)."""
     base = rng.integers(0, 1000, n).astype(np.int32)
+    tile = ex.TILE_ROWS
 
     def planted(rows, value=9000):
         v = base.copy()
@@ -504,6 +519,17 @@ def extract_cases(n, rng):
     yield "threshold INT32_MIN", signed, I32_MIN, min(n, 100), None
     yield "threshold INT32_MAX", planted(some, I32_MAX), I32_MAX, len(some) + 5, None
     yield "n below the stream's length", planted(many), 5000, 2000, n - n // 3
+    last = rng.choice(np.arange((n - 1) // tile * tile, n), size=min(50, n - (n - 1) // tile * tile),
+                      replace=False)
+    yield "matches only in the last tile", planted(last), 5000, len(last) + 5, None
+    yield "the cap reached in the first tile", base, 500, min(n, 100), None
+    each = np.arange(0, n, tile) + rng.integers(0, tile, (n + tile - 1) // tile)
+    each = np.minimum(each, n - 1)
+    yield "one match a tile", planted(each), 5000, len(each) + 3, None
+    edges = planted([r for r in (tile - 2, tile - 1, tile, 2 * tile - 1, 2 * tile) if r < n])
+    for label, rows in (("n one row below a tile", tile - 1), ("n one row above a tile", tile + 1),
+                        ("n at two tiles", 2 * tile)):
+        yield label, edges, 900, min(n, rows), min(n, rows)
 
 
 def _fingerprint_twin(lo, hi):
@@ -956,10 +982,6 @@ def place_runs_cases(n, device, rng):
     d_off[3:6] = [-1, R - 1, R + 4]
     so, do = offsets(s_off, d_off)
     yield "runs leaving the array", dict(src=src, src_off=so, dst_off=do, rows=rows)
-    def off_boundary(t):
-        flat = torch.empty(t.numel() + 1, dtype=torch.int32, device=device)
-        return flat[1:].view(t.shape).copy_(t)
-
     rows = 3
     nruns = R // rows
     so, do = offsets(np.arange(nruns) * rows, rng.permutation(nruns) * rows)
@@ -972,8 +994,10 @@ def place_runs_cases(n, device, rng):
 def int8_form_cases(n, device):
     """(label, keyword arguments of int8_form): each form on the TPU
     probe's (8, 128) tile, on (8, 128) and n values around +-128 (int8
-    wraps), and on n + 3 elements off a 16-byte boundary (the scalar
-    kernel and a ragged end)."""
+    wraps), on n + 3 elements off a 16-byte boundary (the scalar
+    kernel and a ragged end), and at the short lengths and the lengths
+    around one block of the kernel (kp.FORM_BLOCK_ELEMENTS), on and off a
+    16-byte boundary (the tail past the last whole 16-byte word)."""
     tile = np.arange(8 * 128).reshape(8, 128)
     inputs = [("the probe's tile", tile % 7, tile % 5),
               ("(8, 128) around +-128", *probe_int8_ops.probe_inputs((8, 128), 21)),
@@ -983,6 +1007,11 @@ def int8_form_cases(n, device):
     a, b = probe_int8_ops.probe_inputs(n + 4, 23)
     inputs.append((f"{n + 3} off a 16-byte boundary", dev_tensor(a, device)[1:],
                    dev_tensor(b, device)[1:]))
+    block = kp.FORM_BLOCK_ELEMENTS
+    for length in (1, 3, 4, 5, block - 1, block, block + 1):
+        a, b = (dev_tensor(x, device) for x in probe_int8_ops.probe_inputs(length, 24 + length))
+        inputs.append((f"{length}", a, b))
+        inputs.append((f"{length} off a 16-byte boundary", off_boundary(a), off_boundary(b)))
     for case in kp.INT8_CASES:
         for label, a, b in inputs:
             yield f"{case}, {label}", dict(a=a, b=b, case=case)
@@ -1029,20 +1058,40 @@ def probe_kernel_cases(device, n):
     return cases, errs
 
 
+def off_boundary(t, skew=1):
+    """A contiguous copy of ``t`` that starts ``skew`` elements past a
+    16-byte boundary (``skew * t.element_size()`` bytes)."""
+    flat = torch.empty(t.numel() + skew, dtype=t.dtype, device=t.device)
+    return flat[skew:].view(t.shape).copy_(t)
+
+
+def extract_kernel_cases(n, device, rng):
+    """extract_ge against its plain version on every case of
+    ``extract_cases`` at n rows, each also on values 1, 2 and 3 elements
+    off a 16-byte boundary (the kernel's scalar head); returns the number
+    of calls checked."""
+    cases = 0
+    for label, values, threshold, cap, rows in extract_cases(n, rng):
+        aligned = dev_tensor(values, device)
+        for skew in range(4):
+            v = off_boundary(aligned, skew) if skew else aligned
+            check(v.data_ptr() % 16 == 4 * skew, f"extract_ge [{label}]: skew {skew}")
+            where = f"{label}, {skew} off a 16-byte boundary" if skew else label
+            got = ex.extract_ge(v, threshold, cap, rows)
+            want = ex.extract_ge_plain(v, threshold, cap, rows)
+            torch.cuda.synchronize()
+            kept = check_extract(where, got, want, v, threshold, cap, rows)
+            check((kept > 0) == (label != "no match"), f"extract_ge [{where}]: vacuous")
+            cases += 1
+    return cases
+
+
 def phase_kernels(device, n):
     """The case grid: options and widths the main path may not reach.
     Returns place_runs' and int8_form's largest |difference| from their
     plain versions."""
     rng = np.random.default_rng(7)
-    cases = 0
-    for label, values, threshold, cap, rows in extract_cases(n, rng):
-        v = dev_tensor(values, device)
-        got = ex.extract_ge(v, threshold, cap, rows)
-        want = ex.extract_ge_plain(v, threshold, cap, rows)
-        torch.cuda.synchronize()
-        kept = check_extract(label, got, want, v, threshold, cap, rows)
-        check((kept > 0) == (label != "no match"), f"extract_ge [{label}]: vacuous")
-        cases += 1
+    cases = extract_kernel_cases(n, device, rng)
     for name, label, kw in kernel_cases(n, device, rng):
         wrapper, plain = _KERNELS[name].wrapper, _KERNELS[name].plain
         got = wrapper(**kw)
@@ -1146,15 +1195,53 @@ def phase_probes(device):
     for name, count in launches.items():
         check(count > 0, f"{name}: not launched on the probes' path")
     seconds = time.perf_counter() - t0
+    form_turns(device, forms)
     log(f"phase 3: the probes' placement ({PROBE_WORDS} words) and int8 forms"
         f" ({PROBE_FORM_ELEMENTS} elements) in {seconds:.1f} s, launches {launches}")
     return dict(placement=placement, forms=forms, launches=launches, seconds=seconds)
 
 
+def form_turns(device, forms, iters=50):
+    """Each int8 form at the probe's size timed in turns with its library
+    call where there is one (CUDA events around ``iters`` calls, and the
+    device time of calls queued behind a sleep, kernel_device_ms), and
+    with the earlier tree's kernel where $EVQL_PARENT_TREE names one,
+    after a check that they agree and a warm-up; added to ``forms`` with
+    the seconds it took. Its launches come after the probes' path and
+    count on no path."""
+    a, b = (torch.from_numpy(x).to(device)
+            for x in probe_int8_ops.probe_inputs(PROBE_FORM_ELEMENTS, 12))
+    buf = torch.empty_like(a)
+    parent = PARENT.get("probes")
+    t0 = time.perf_counter()
+    for case, res in forms.items():
+        mine = kp.int8_form(a, b, case)
+        others = {}
+        if case in probe_int8_ops.LIBRARY:
+            call = probe_int8_ops.LIBRARY[case][1]
+            check(torch.equal(call(a, b, buf), mine), f"int8_form [{case}]: library call differs")
+            others["library"] = lambda: call(a, b, buf)
+        if parent is not None:
+            check(torch.equal(parent.int8_form(a, b, case), mine),
+                  f"int8_form [{case}]: the earlier kernel and this one disagree")
+            others["parent"] = lambda: parent.int8_form(a, b, case)
+            res["parent"] = os.environ[PARENT_TREE]
+        for name, other in others.items():
+            for _ in range(20):
+                other()
+                kp.int8_form(a, b, case)
+            res[f"{name}_turns_ms"], res[f"{name}_turns_new_ms"], res[f"{name}_turns"] = in_turns(
+                other, lambda: kp.int8_form(a, b, case), iters)
+            res[f"{name}_device_turns"] = [kernel_device_ms(fn) for fn in (
+                other, lambda: kp.int8_form(a, b, case), lambda: kp.int8_form(a, b, case), other)]
+    log(f"phase 3: the int8 forms timed in turns in {time.perf_counter() - t0:.1f} s")
+
+
 def probe_kernel_rows(probe, errs):
     """The {"kernels": [...]} rows of place_runs and int8_form from the
     probes' run: place_runs at runs of 256 elements (the others under
-    ``other_shapes``), int8_form's first form (the others likewise)."""
+    ``other_shapes``), int8_form's first form, timed in turns with its
+    library call (the others likewise)."""
     place = probe["placement"][0]
     form_name = kp.INT8_CASES[0]
     form = probe["forms"][form_name]
@@ -1177,8 +1264,13 @@ def probe_kernel_rows(probe, errs):
                       " k_mul_i32_to_i8 :67)",
              launches=probe["launches"]["int8_form"],
              launches_by_path={"probes": probe["launches"]["int8_form"]},
-             max_abs_err=errs["int8_form"], ms=form["ms"], plain_ms=form["plain_ms"],
-             bound_ms=form["bound_ms"], library_ms=form["library_ms"], library=form["library"],
+             # ms and library_ms: the turns of form_turns (interleaved, warm);
+             # the probe's own first timings beside them
+             max_abs_err=errs["int8_form"], ms=form["library_turns_new_ms"],
+             plain_ms=form["plain_ms"], bound_ms=form["bound_ms"],
+             library_ms=form["library_turns_ms"], library=form["library"],
+             probe_ms=form["ms"], probe_library_ms=form["library_ms"],
+             **{key: value for key, value in form.items() if "turns" in key},
              shape=f"{PROBE_FORM_ELEMENTS} int32 pairs, {form_name}", bytes=form["bytes"],
              other_shapes={c: f for c, f in probe["forms"].items() if c != form_name}),
     ]
@@ -1981,6 +2073,15 @@ def check_and_time_extract(label, kw, iters):
     )
     # the values read once, the cap indices written once; one compare a row
     out.update(_bound(4 * n + 4 * cap, n, f"n={n} cap={cap} values=int32"))
+    if "extract" in PARENT:  # the earlier kernel on the same arguments, in turns
+        earlier = PARENT["extract"].extract_ge
+        check(torch.equal(earlier(values, threshold, cap, rows),
+                          ex.extract_ge(values, threshold, cap, rows)),
+              f"extract_ge [{label}]: the earlier kernel and this one disagree")
+        out["parent_ms"], out["turns_new_ms"], out["turns_ms"] = in_turns(
+            lambda: earlier(values, threshold, cap, rows),
+            lambda: ex.extract_ge(values, threshold, cap, rows), iters)
+        out["parent"] = os.environ[PARENT_TREE]
     return out
 
 
@@ -2081,45 +2182,46 @@ def kernel_device_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-PARENT_JOIN_CU = "EVQL_PARENT_JOIN_CU"  # an earlier join.cu, to time its B4 beside this one
+PARENT_TREE = "EVQL_PARENT_TREE"  # an earlier tree of the repo, its kernels timed beside these
+PARENT = {}  # "extract" / "join" / "probes" -> that tree's kernel module, loaded in phase 2
 
 
-def start_parent_build():
-    """Start compiling the join.cu named by $EVQL_PARENT_JOIN_CU beside
-    the package's own build; None when it is unset."""
-    path = os.environ.get(PARENT_JOIN_CU)
-    if not path:
-        return None
-    os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    out = os.path.join(_build.BUILD_DIR, "parent_join.so")
-    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", out, path]
-    return out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                 text=True)
+def parent_kernels(names=("extract", "join", "probes")):
+    """The kernel modules ``eventql_tpu_torch.kernels.<name>`` of the
+    earlier tree that $EVQL_PARENT_TREE names, imported apart from this
+    tree's: each calls its own kernel through its own wrapper and C
+    interface, builds into that tree and counts its launches there. {}
+    when it is unset."""
+    tree = os.environ.get(PARENT_TREE)
+    if not tree:
+        return {}
+    tree = os.path.abspath(tree)
+
+    def package_modules():
+        return [k for k in sys.modules if k.split(".")[0] == "eventql_tpu_torch"]
+
+    ours = {k: sys.modules.pop(k) for k in package_modules()}
+    sys.path.insert(0, tree)
+    try:
+        mods = {name: importlib.import_module(f"eventql_tpu_torch.kernels.{name}")
+                for name in names}
+    finally:
+        sys.path.remove(tree)
+        for k in package_modules():
+            del sys.modules[k]
+        sys.modules.update(ours)
+    for mod in mods.values():
+        check(mod.__file__.startswith(tree + os.sep),
+              f"${PARENT_TREE}: {mod.__name__} came from {mod.__file__}")
+    return mods
 
 
-def parent_dim_join(build):
-    """The earlier B4 as a function of dim_join_gid's arguments. Its
-    evql_dim_join_gid must take what the package's does: the argument
-    types are the ones kernels/join.py gives its own."""
-    if build is None:
-        return None
-    out, proc = build
-    log, _ = proc.communicate()
-    check(proc.returncode == 0, f"the earlier join.cu did not build:\n{log}")
-    fn = ctypes.CDLL(out).evql_dim_join_gid
-    own = kj._lib().evql_dim_join_gid
-    fn.argtypes, fn.restype = own.argtypes, own.restype
-
-    def call(fact_keys, dim_keys, dim_bucket, n=None):
-        n = fact_keys.shape[0] if n is None else n
-        got = torch.empty(n, dtype=torch.int32, device=fact_keys.device)
-        rc = fn(fact_keys.data_ptr(), kj._KEY_DT[fact_keys.dtype], n, dim_keys.data_ptr(),
-                dim_bucket.data_ptr(), dim_keys.shape[0], got.data_ptr(),
-                torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"the earlier dim_join_gid: CUDA error {rc}")
-        return got
-
-    return call
+def in_turns(first, second, iters):
+    """CUDA-event ms of ``first`` and ``second`` timed in turns (first,
+    second, second, first), each the mean of its two turns, and the four
+    turns."""
+    turns = [cuda_ms(fn, iters) for fn in (first, second, second, first)]
+    return (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2, turns
 
 
 def dim_join_extras(kw, iters, parent):
@@ -2134,12 +2236,12 @@ def dim_join_extras(kw, iters, parent):
             kw["fact_keys"], kw["dim_keys"][:1], kw["dim_bucket"][:1], 1)))
     if parent is None:
         out["parent_ms"] = None
-        out["parent"] = f"not measured: ${PARENT_JOIN_CU} is unset"
+        out["parent"] = f"not measured: ${PARENT_TREE} is unset"
         return out
     check(torch.equal(parent(**kw), kj.dim_join_gid(**kw)),
           "the earlier dim_join_gid and this one disagree")
     out["parent_ms"] = cuda_ms(lambda: parent(**kw), iters)
-    out["parent"] = os.environ[PARENT_JOIN_CU]
+    out["parent"] = os.environ[PARENT_TREE]
     return out
 
 
@@ -3013,8 +3115,8 @@ def mesh_shapes(first_calls, phase="phase 6", where="mesh"):
     out = {}
     for kernel, (query, kw) in first_calls.items():
         label = f"{where} {query}"
-        if kernel == "extract_ge":
-            res = check_and_time_extract(label, kw, 5)
+        if kernel == "extract_ge":  # 20 calls: a 2^22-row call is about the host's time
+            res = check_and_time_extract(label, kw, 20)
         elif kernel == "hash_groupby":
             res = check_and_time_hash(label, kw, 3)
         elif kernel in ("dim_join_gid", "probe_join_gid"):
@@ -5451,13 +5553,14 @@ def main():
     ).stdout.strip().splitlines()[0]
     log(f"phase 1: torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
-    parent_build = start_parent_build()
     secs = _build.build_all(verbose=True)
     for name in _build.sources():
         _build.load(name)
-    parent = parent_dim_join(parent_build)
+    PARENT.update(parent_kernels())
+    parent = PARENT["join"].dim_join_gid if PARENT else None
+    parent_secs = PARENT["join"]._build.build_all() if PARENT else 0.0
     log(f"phase 2: kernels built in {secs:.1f} s: {_build.sources()}"
-        + (f"; the earlier join.cu from ${PARENT_JOIN_CU}" if parent else ""))
+        + (f"; the earlier tree's in {parent_secs:.1f} s from ${PARENT_TREE}" if PARENT else ""))
 
     probe_errs = phase_kernels(device, N_KERNEL_CASE_ROWS)
     probe = phase_probes(device)
@@ -5530,7 +5633,8 @@ def main():
         # row (its table build) and the earlier kernel; hash_groupby: its
         # groups, and its group ids + count + first row alone
         for key in ("build_ms", "one_row_device_ms", "one_row_one_dim_device_ms",
-                    "parent_ms", "parent", "groups", "ids_count_first_ms", "tier",
+                    "parent_ms", "parent", "turns_ms", "turns_new_ms", "groups",
+                    "ids_count_first_ms", "tier",
                     "hash_tier_ms", "hash_tier_ids_count_first_ms", "peak_bytes",
                     "hash_tier_peak_bytes"):
             if key in t:

@@ -30,10 +30,18 @@
 //   3 select_i8_value  a == b ? i8(b) : 0
 //   4 mul_i32_then_i8  i8(b * (a == b ? 1 : 0))
 // Bound: bytes, 12 a element (a and b read, out written; 8 for form 2, which
-// reads only a: its load of b is dead code). Design: one
-// grid-stride pass, four elements a thread from 16-byte loads when the three
-// arrays start on a 16-byte boundary (scalar loads otherwise), the case a
-// template parameter.
+// reads only a). Design: an exact grid, no grid-stride loop: a block takes
+// kFormBlock elements, each thread kFormVecs groups of four neighbouring
+// elements (neighbouring threads on neighbouring groups), and starts all
+// its loads of a (and of b, except in form 2) before the first compare,
+// then stores as many groups: with the three arrays on a 16-byte boundary
+// a group is one 16-byte load or store, 64 bytes of loads a stream in
+// flight a thread; a group that runs past n, or any group when an array
+// lies off the boundary, goes as masked scalars. Offsets inside a block
+// are 32-bit. Loads take the read-only path (__ldg); stores carry the
+// streaming hint (__stcs: nothing is read back). With streaming loads as
+// well, its speed depended on where the output lay; with these hints it
+// does not. The case is a template parameter.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -45,7 +53,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kRowWords = 128;             // 32-bit words a row
 constexpr int kRowVecs = kRowWords / 4;    // 16-byte words a row: one a lane
 constexpr int kSegRows = 8;                // rows a warp copies: 4 KB
-constexpr int kMaxBlocks = 132 * 32;       // grid-stride cap of the elementwise kernel
+constexpr int kFormThreads = 128;                      // int8_form's block
+constexpr int kFormVecs = 4;                           // groups of 4 elements a thread
+constexpr int kFormBlock = 4 * kFormThreads * kFormVecs;  // elements a block: 2048
 
 inline bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
@@ -99,40 +109,64 @@ __device__ __forceinline__ int32_t form(int32_t a, int32_t b) {
   return wrap8(b * (a == b ? 1 : 0));
 }
 
-template <int kCase, bool kVec>
-__global__ void __launch_bounds__(kThreads)
-int8_form_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
-                 int32_t* __restrict__ out, long long n) {
-  const long long stride = (long long)gridDim.x * kThreads;
-  const long long tid = (long long)blockIdx.x * kThreads + threadIdx.x;
-  long long done = 0;
-  if (kVec) {
-    const long long nvec = n / 4;
-    const int4* a4 = reinterpret_cast<const int4*>(a);
-    const int4* b4 = reinterpret_cast<const int4*>(b);
-    int4* o4 = reinterpret_cast<int4*>(out);
-    for (long long i = tid; i < nvec; i += stride) {
-      const int4 x = __ldg(a4 + i);
-      const int4 y = __ldg(b4 + i);
-      o4[i] = make_int4(form<kCase>(x.x, y.x), form<kCase>(x.y, y.y),
-                        form<kCase>(x.z, y.z), form<kCase>(x.w, y.w));
-    }
-    done = nvec * 4;
+// Elements [e, e + 4) of p, those below `here`: one 16-byte load when `vec`
+// and all four are there, else masked scalars (0 where there is none).
+__device__ __forceinline__ int4 load4(const int32_t* p, int e, int here, bool vec) {
+  if (vec && e + 4 <= here) return __ldg(reinterpret_cast<const int4*>(p + e));
+  int4 v = make_int4(0, 0, 0, 0);
+  if (e < here) v.x = __ldg(p + e);
+  if (e + 1 < here) v.y = __ldg(p + e + 1);
+  if (e + 2 < here) v.z = __ldg(p + e + 2);
+  if (e + 3 < here) v.w = __ldg(p + e + 3);
+  return v;
+}
+
+__device__ __forceinline__ void store4(int32_t* p, int e, int here, bool vec, int4 v) {
+  if (vec && e + 4 <= here) {
+    __stcs(reinterpret_cast<int4*>(p + e), v);
+    return;
   }
-  for (long long i = done + tid; i < n; i += stride) out[i] = form<kCase>(a[i], b[i]);
+  if (e < here) __stcs(p + e, v.x);
+  if (e + 1 < here) __stcs(p + e + 1, v.y);
+  if (e + 2 < here) __stcs(p + e + 2, v.z);
+  if (e + 3 < here) __stcs(p + e + 3, v.w);
+}
+
+// vec: a, b and out all lie on a 16-byte boundary
+template <int kCase>
+__global__ void __launch_bounds__(kFormThreads)
+int8_form_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                 int32_t* __restrict__ out, long long n, bool vec) {
+  constexpr bool kReadsB = kCase != 2;
+  const long long e0 = (long long)blockIdx.x * kFormBlock;
+  const int here = n - e0 < kFormBlock ? (int)(n - e0) : kFormBlock;
+  a += e0;
+  b += e0;
+  out += e0;
+  int4 x[kFormVecs], y[kFormVecs];
+#pragma unroll
+  for (int k = 0; k < kFormVecs; ++k) {
+    const int e = 4 * (threadIdx.x + k * kFormThreads);
+    x[k] = load4(a, e, here, vec);
+    if (kReadsB) y[k] = load4(b, e, here, vec);
+  }
+#pragma unroll
+  for (int k = 0; k < kFormVecs; ++k) {
+    const int e = 4 * (threadIdx.x + k * kFormThreads);
+    const int4 yk = kReadsB ? y[k] : x[k];
+    store4(out, e, here, vec,
+           make_int4(form<kCase>(x[k].x, yk.x), form<kCase>(x[k].y, yk.y),
+                     form<kCase>(x[k].z, yk.z), form<kCase>(x[k].w, yk.w)));
+  }
 }
 
 template <int kCase>
 cudaError_t launch_form(const int32_t* a, const int32_t* b, int32_t* out, long long n,
                         cudaStream_t st) {
+  const long long blocks = (n + kFormBlock - 1) / kFormBlock;
+  if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
   const bool vec = aligned16(a) && aligned16(b) && aligned16(out);
-  const long long items = vec ? (n + 3) / 4 : n;
-  long long blocks = (items + kThreads - 1) / kThreads;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  if (vec)
-    int8_form_kernel<kCase, true><<<(unsigned)blocks, kThreads, 0, st>>>(a, b, out, n);
-  else
-    int8_form_kernel<kCase, false><<<(unsigned)blocks, kThreads, 0, st>>>(a, b, out, n);
+  int8_form_kernel<kCase><<<(unsigned)blocks, kFormThreads, 0, st>>>(a, b, out, n, vec);
   return cudaGetLastError();
 }
 
@@ -182,3 +216,6 @@ extern "C" int evql_int8_form(const void* a, const void* b, void* out, long long
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// Elements a block of evql_int8_form takes.
+extern "C" int evql_int8_form_block_elements() { return kFormBlock; }

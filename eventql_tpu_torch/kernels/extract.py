@@ -5,11 +5,20 @@ The port of the TPU kernel of eventql_tpu/kernels/extract.py:
 returns the ascending indices of the rows whose int32 value is at least
 a threshold: the first ``cap`` of them by row, padded with -1.
 
-The kernel is the CUDA C++ of ``csrc/extract.cu``: per-block match
-counts, an exclusive scan of the counts, then an ordered write (ballot
-and popcount ranks). It is bound by bytes: the values are read once,
-``cap`` indices are written. The kernel takes ``n`` and masks its own
-ragged edge, so nothing is padded.
+The kernel is the CUDA C++ of ``csrc/extract.cu``: one launch, one pass
+over the values with decoupled look-back. Each block claims the next
+tile of ``TILE_ROWS`` rows, reads it once with 16-byte loads, ranks its
+matches (popcount and a warp scan of the counts), takes its prefix from
+its predecessors' 64-bit status words and writes its matches in row
+order; the last tile writes the -1 padding. It is bound by bytes: the
+values are read once, ``cap`` indices are written. The kernel takes
+``n`` and masks its own head (a base off a 16-byte boundary) and ragged
+tail, so nothing is padded.
+
+The kernel's state (a tile counter and a status word a tile) is kept
+between calls, one per device and stream (``_State``), so that no launch
+resets it: each call passes the counter's value and an epoch of its own,
+which its status words carry.
 
 Used by the top-k pipeline (kernels/sort.py): histogram -> threshold ->
 extract candidates -> exact small top-k.
@@ -22,6 +31,7 @@ PyTorch version (``extract_ge_plain``) for CPU tensors only.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Optional
 
 import torch
@@ -32,6 +42,10 @@ from eventql_tpu_torch.kernels import _build
 LAUNCHES = {"extract_ge": 0}
 
 _I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+
+# rows a block of the kernel reads (csrc/extract.cu: kTileRows, checked when
+# the library loads); the tests and chip_smoke.py size their cases around it
+TILE_ROWS = 8192
 
 
 def _checked(values: torch.Tensor, threshold, cap, n):
@@ -73,13 +87,38 @@ def _lib():
     global _lib_ready
     lib = _build.load("extract")
     if not _lib_ready:
-        vp, ci, cll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        lib.evql_extract_scratch_ints.argtypes = [cll]
-        lib.evql_extract_scratch_ints.restype = cll
-        lib.evql_extract_ge.argtypes = [vp, cll, ci, ci, vp, vp, vp]
-        lib.evql_extract_ge.restype = ci
+        vp, ci, cll, cu, cull = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                                 ctypes.c_uint, ctypes.c_ulonglong)
+        lib.evql_extract_state_words.argtypes = [cll]
+        lib.evql_extract_state_words.restype = cll
+        lib.evql_extract_max_epoch.argtypes = []
+        lib.evql_extract_max_epoch.restype = cu
+        lib.evql_extract_ge.argtypes = [vp, cll, ci, ci, vp, vp, cull, cu, vp]
+        lib.evql_extract_ge.restype = cll
+        lib.evql_extract_tile_rows.argtypes = []
+        lib.evql_extract_tile_rows.restype = ci
+        if lib.evql_extract_tile_rows() != TILE_ROWS:
+            raise RuntimeError(f"extract.cu's tile holds {lib.evql_extract_tile_rows()} rows,"
+                               f" TILE_ROWS says {TILE_ROWS}")
         _lib_ready = True
     return lib
+
+
+class _State:
+    """The kernel's state on one device and stream: ``words`` int64 (the
+    tile counter, then a status word a tile), zeroed when made; ``base``:
+    the counter's value after the calls enqueued so far; ``epoch``: the
+    last call's. Calls on one stream run in the order they were enqueued,
+    so each finds the counter at the ``base`` it was given."""
+
+    def __init__(self, words, device):
+        self.words = torch.zeros(words, dtype=torch.int64, device=device)
+        self.base = 0
+        self.epoch = 0
+
+
+_STATES = {}  # (device index, stream) -> _State
+_STATES_LOCK = threading.Lock()
 
 
 def extract_ge(
@@ -97,17 +136,27 @@ def extract_ge(
     if n == 0:
         return torch.full((cap,), -1, dtype=torch.int32, device=values.device)
     lib = _lib()
-    out = torch.empty(cap, dtype=torch.int32, device=values.device)
-    scratch = torch.empty(
-        lib.evql_extract_scratch_ints(n), dtype=torch.int32, device=values.device
-    )
-    with torch.cuda.device(values.device):
-        rc = lib.evql_extract_ge(
-            values.data_ptr(), n, threshold, cap, out.data_ptr(),
-            scratch.data_ptr(),
-            torch.cuda.current_stream(values.device).cuda_stream,
+    device = values.device
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    out = torch.empty(cap, dtype=torch.int32, device=device)
+    words = lib.evql_extract_state_words(n)
+    with _STATES_LOCK, torch.cuda.device(device):
+        # this device and stream's state, made (zeroed) when it is missing,
+        # too small or out of epochs
+        state = _STATES.get((device.index, stream))
+        if (state is None or state.words.numel() < words
+                or state.epoch >= lib.evql_extract_max_epoch()):
+            state = _STATES[device.index, stream] = _State(words, device)
+        state.epoch += 1
+        tiles = lib.evql_extract_ge(
+            values.data_ptr(), n, threshold, cap, out.data_ptr(), state.words.data_ptr(),
+            state.base, state.epoch, stream,
         )
-    if rc != 0:
-        raise RuntimeError(f"extract_ge: CUDA error {rc} at launch")
+        if tiles < 0:
+            # the kernel may have been enqueued all the same (an error left
+            # pending by an earlier call): the counter is no longer known
+            del _STATES[device.index, stream]
+            raise RuntimeError(f"extract_ge: CUDA error {-tiles} at launch")
+        state.base += tiles
     LAUNCHES["extract_ge"] += 1
     return out

@@ -23,7 +23,11 @@ Both kernels are the CUDA C++ of ``csrc/probes.cu``. ``place_runs`` has
 no VMEM staging and no serial grid: a warp copies a run (a long run in
 pieces of 8 rows) with 16-byte loads and stores, and the offsets live in
 device memory, so there is no cap on the number of runs (the TPU's: 65536
-in SMEM). u32 words are carried as int32 bit patterns (ROADMAP C1).
+in SMEM). ``int8_form`` runs an exact grid of ``FORM_BLOCK_ELEMENTS``
+elements a block, four 16-byte loads of each input a thread before the
+first compare, read-only loads and streaming stores (masked scalars for
+the ragged end and for an operand off a 16-byte boundary). u32 words are carried as int32 bit
+patterns (ROADMAP C1).
 
 Each wrapper launches its kernel for CUDA tensors and uses the plain
 PyTorch version (``*_plain``) for CPU tensors only. ``LAUNCHES`` counts
@@ -43,6 +47,10 @@ from eventql_tpu_torch.kernels import _build
 LAUNCHES = {"place_runs": 0, "int8_form": 0}
 
 ROW_WORDS = 128  # 32-bit words a row of place_runs' arrays (the TPU's lane width)
+
+# elements a block of int8_form's kernel takes (csrc/probes.cu: kFormBlock,
+# checked when the library loads); chip_smoke.py sizes its edge cases around it
+FORM_BLOCK_ELEMENTS = 2048
 
 # the five forms, in the order of scripts/probe_int8_ops.py's main
 INT8_CASES = ("select_i8_const", "muli_i8", "convert_i32_i8", "select_i8_value",
@@ -153,6 +161,12 @@ def _lib():
         lib.evql_place_runs.restype = ci
         lib.evql_int8_form.argtypes = [vp, vp, vp, cll, ci, vp]
         lib.evql_int8_form.restype = ci
+        lib.evql_int8_form_block_elements.argtypes = []
+        lib.evql_int8_form_block_elements.restype = ci
+        if lib.evql_int8_form_block_elements() != FORM_BLOCK_ELEMENTS:
+            raise RuntimeError(f"probes.cu's int8_form block takes"
+                               f" {lib.evql_int8_form_block_elements()} elements,"
+                               f" FORM_BLOCK_ELEMENTS says {FORM_BLOCK_ELEMENTS}")
         _lib_ready = True
     return lib
 
@@ -206,7 +220,7 @@ def int8_form(a: torch.Tensor, b: torch.Tensor, case: str) -> torch.Tensor:
     with torch.cuda.device(a.device):
         rc = _lib().evql_int8_form(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), a.numel(), k,
-            torch.cuda.current_stream(a.device).cuda_stream,
+            torch._C._cuda_getCurrentRawStream(a.device.index),
         )
     if rc != 0:
         raise RuntimeError(f"int8_form: CUDA error {rc} at launch")

@@ -58,6 +58,54 @@ def test_probe_kernels_equal_plain_versions_on_the_card(cuda_device):
     assert all(probes.LAUNCHES[k] > before[k] for k in before)
 
 
+def test_extract_ge_look_back_cases_on_the_card(cuda_device):
+    """extract_ge: chip_smoke.py phase 3's cases at 2^20 rows (the corners
+    of the look-back over tiles: matches only in the last tile, the cap
+    reached in the first, one match a tile, n either side of a tile), each
+    on values aligned and 1, 2 and 3 elements off a 16-byte boundary,
+    against the plain version; one launch a call."""
+    import chip_smoke
+    from eventql_tpu_torch.kernels import extract as ex
+
+    before = ex.LAUNCHES["extract_ge"]
+    cases = chip_smoke.extract_kernel_cases(1 << 20, cuda_device, np.random.default_rng(20))
+    assert cases == 4 * len(list(chip_smoke.extract_cases(8, np.random.default_rng(0))))
+    assert ex.LAUNCHES["extract_ge"] == before + cases
+
+
+def test_extract_ge_after_a_failed_launch(cuda_device, monkeypatch):
+    """A launch that reports an error after its kernel was enqueued (an
+    error left pending by an earlier call reads so) leaves the tile
+    counter ahead of what the wrapper knows: the wrapper drops the
+    stream's state, and the calls after it, on a fresh one, are right."""
+    from eventql_tpu_torch.kernels import extract as ex
+
+    rng = np.random.default_rng(5)
+    values = torch.from_numpy(
+        rng.integers(0, 1000, 3 * ex.TILE_ROWS + 5).astype(np.int32)).to(cuda_device)
+    want = ex.extract_ge_plain(values, 990, 500)
+    assert torch.equal(ex.extract_ge(values, 990, 500), want)
+    lib = ex._lib()
+
+    class EnqueuedThenFailed:
+        def __getattr__(self, name):
+            return getattr(lib, name)
+
+        def evql_extract_ge(self, *args):
+            assert lib.evql_extract_ge(*args) == 4  # the kernel's 4 tiles claimed
+            return -1
+
+    monkeypatch.setattr(ex, "_lib", EnqueuedThenFailed)
+    key = (cuda_device.index, torch._C._cuda_getCurrentRawStream(cuda_device.index))
+    assert key in ex._STATES
+    with pytest.raises(RuntimeError, match="CUDA error 1 at launch"):
+        ex.extract_ge(values, 990, 500)
+    assert key not in ex._STATES
+    monkeypatch.undo()
+    for _ in range(3):
+        assert torch.equal(ex.extract_ge(values, 990, 500), want)
+
+
 def test_probes_run_on_the_card(cuda_device):
     """The three probes at 2^20 elements: every step checked and timed."""
     from eventql_tpu_torch.scripts import probe_groupby_i8, probe_int8_ops, probe_radix

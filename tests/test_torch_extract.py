@@ -23,8 +23,10 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from chip_smoke import extract_cases  # noqa: E402  (torch only, no jax)
 
-SIZES = [1, 8191, 8192, 8193, 50_000]
-N_CASES = 11
+# the kernel's tile edges: one row either side of one and of two tiles
+T = ex.TILE_ROWS
+SIZES = [1, T - 1, T, T + 1, 2 * T - 1, 2 * T, 2 * T + 1, 50_000]
+N_CASES = 17
 
 
 def _case(n, i):
