@@ -1,0 +1,56 @@
+"""No module that the harness or the reference loads has the top-level name
+jax, jaxlib, flax or eventql_tpu (whole names: eventql_tpu_torch is the
+port), and the reference loads nothing of the port."""
+
+import subprocess
+import sys
+import types
+
+from gpubench import harness
+
+RUN_A_CELL = """
+import json, sys, time
+from gpubench import harness
+from gpubench.tests.tiny import sizes
+r = harness.run_cell("hits_dashboard", 5, 0.2, True, time.perf_counter(), device="cpu",
+                     sizes=sizes("hits_dashboard"))
+print(json.dumps({"correct": r["correct"], "bad": harness.forbidden_modules(),
+                  "tops": sorted({m.split(".")[0] for m in sys.modules})}))
+"""
+
+LOAD_THE_REFERENCE = """
+import json, sys
+from gpubench import harness
+for config in ("tpch_sf10_lineitem", "clickbench_hits"):
+    harness._load(harness.os.path.join(harness.HERE, "reference", config + ".py"))
+print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
+"""
+
+
+def _run(code):
+    done = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          cwd=harness.ROOT, timeout=600, env={"PATH": "/usr/bin:/bin", "USE_FLAX": "0"})
+    assert done.returncode == 0, done.stderr[-2000:]
+    import json
+
+    return json.loads(done.stdout.strip().splitlines()[-1])
+
+
+def test_a_run_loads_no_jax_module():
+    out = _run(RUN_A_CELL)
+    assert out["correct"] and out["bad"] == []
+    assert "eventql_tpu_torch" in out["tops"]
+    assert not set(out["tops"]) & {"jax", "jaxlib", "flax", "eventql_tpu"}
+
+
+def test_the_reference_loads_nothing_of_the_port():
+    tops = set(_run(LOAD_THE_REFERENCE))
+    assert not tops & {"jax", "jaxlib", "flax", "eventql_tpu", "eventql_tpu_torch", "chip_smoke"}
+
+
+def test_names_are_compared_whole(monkeypatch):
+    monkeypatch.setitem(sys.modules, "eventql_tpu_torch_probe", types.ModuleType("x"))
+    clean = harness.forbidden_modules()
+    monkeypatch.setitem(sys.modules, "eventql_tpu.exec", types.ModuleType("y"))
+    assert "eventql_tpu" in harness.forbidden_modules()
+    assert "eventql_tpu" not in clean or "eventql_tpu" in sys.modules
