@@ -45,6 +45,7 @@ from eventql_tpu_torch.plan.exprs import (
     LiteralExpressionNode,
     has_aggregate_call,
 )
+from eventql_tpu_torch.utils import trace
 
 # bucket-count cap of the route: beyond it the key is "unbounded" and
 # belongs to the sort-based GROUP BY tier
@@ -161,12 +162,38 @@ def _to_device_cols(rel_cols: List[Column], names: List[str], wanted, device):
                     cache = c._device_cache = {}
                 dev = cache.get(dkey)
                 if dev is None:
-                    dev = cache[dkey] = (
-                        _to_tensor(_narrow_np(c), device),
-                        _to_tensor(c.valid, device),
-                    )
+                    dev = cache[dkey] = _upload(cname, c, device)
         out.append(torch_expr.DeviceCol(c.stype, dev[0], dev[1]))
     return out
+
+
+# column uploads (cache misses of _to_device_cols) and the host bytes
+# they copied to a device, since import
+COLUMN_UPLOADS = 0
+UPLOAD_BYTES = 0
+
+
+def _upload(name: str, c: Column, device):
+    """(data, valid) of a host column on ``device``, the data narrowed,
+    under an ``upload`` span."""
+    global COLUMN_UPLOADS, UPLOAD_BYTES
+    with trace.span("upload") as sp:
+        data = _narrow_np(c)
+        out = (_to_tensor(data, device), _to_tensor(c.valid, device))
+        nbytes = data.nbytes + c.valid.nbytes
+        sp.set("column", name)
+        sp.set("bytes", nbytes)
+    COLUMN_UPLOADS += 1
+    UPLOAD_BYTES += nbytes
+    return out
+
+
+def _expr(role: str, expr, columns, n: int, device):
+    """``torch_expr.compile_expr`` as a route calls it, under one
+    ``expr`` span naming what it computes: "where", "key", "agg" or
+    "order"."""
+    with trace.span("expr", role=role):
+        return torch_expr.compile_expr(expr, columns, n, device)
 
 
 # -- fused GROUP BY kernel route ----------------------------------------------
@@ -591,6 +618,7 @@ def try_execute_string_groupby(
     if fused_cfg is not None:
         global FUSED_GROUPBY_COUNT
         FUSED_GROUPBY_COUNT += 1
+        trace.note("counter", "FUSED_GROUPBY_COUNT")
         packed = _run_fused(
             fused_cfg, scan, in_cols, key_dev, key_all_valid, key_base, K,
             num_buckets, sum_src_idx, value_bits, kinds_static, n, device,
@@ -599,6 +627,7 @@ def try_execute_string_groupby(
         if multi_cfg is not None:
             global MULTI_SUM_GROUPBY_COUNT
             MULTI_SUM_GROUPBY_COUNT += 1
+            trace.note("counter", "MULTI_SUM_GROUPBY_COUNT")
         packed = _run_masked(
             scan, in_cols, g, key_dev, _column_all_valid(key_col), entries,
             kinds_static, distinct_sums, multi_cfg, K, num_buckets,
@@ -687,7 +716,7 @@ def _run_fused(fused_cfg, scan, in_cols, key_dev, key_all_valid, key_base, K,
         if src == "mask":
             # general predicate: evaluate the WHERE over the device
             # columns -> 0/1 byte stream; the kernel compares it >= 1
-            m = torch_expr.compile_expr(scan.where_expr, in_cols, n, device)
+            m = _expr("where", scan.where_expr, in_cols, n, device)
             stream = m.data.expand(n).contiguous()
             preds.append(kernels.Pred("stream", op, thr, stream))
         elif isinstance(src, int):
@@ -751,7 +780,7 @@ def _run_masked(scan, in_cols, g, key_in, key_all_valid, entries, kinds_static,
     mask = None
     if scan.where_expr is not None:
         mask = (
-            torch_expr.compile_expr(scan.where_expr, in_cols, n, device)
+            _expr("where", scan.where_expr, in_cols, n, device)
             .data.expand(n)
             .contiguous()
         )
@@ -762,7 +791,8 @@ def _run_masked(scan, in_cols, g, key_in, key_all_valid, entries, kinds_static,
     if key_all_valid:
         gid = key_in.data  # no NULL bucket needed: the narrow ids as stored
     else:
-        key_dev = scan_cols[g.column_index]
+        with trace.span("expr", role="key"):
+            key_dev = scan_cols[g.column_index]
         gid = torch.where(
             key_dev.valid,
             key_dev.data.to(torch.int32),
@@ -780,7 +810,7 @@ def _run_masked(scan, in_cols, g, key_in, key_all_valid, entries, kinds_static,
                     # not (reference: aggregate.cc:35-38)
                     vals.append(None)
                 else:
-                    c = torch_expr.compile_expr(a.args[0], scan_cols, n, device)
+                    c = _expr("agg", a.args[0], scan_cols, n, device)
                     vals.append(c.data.expand(n).to(torch.int64).contiguous())
         return vals
 
@@ -912,7 +942,7 @@ def _group_key(g, scan, in_cols, host_cols, scan_cols, n, device):
             return dc.data, None, _stored_span(hc)
         data, valid, span = dc.data, dc.valid, _stored_span(hc, nullable=True)
     else:
-        c = torch_expr.compile_expr(g, scan_cols, n, device)
+        c = _expr("key", g, scan_cols, n, device)
         data, valid, span = c.data, c.valid, None
     data = torch.where(valid, data, torch.zeros((), dtype=data.dtype, device=device))
     return data.expand(n).contiguous(), valid.expand(n), span
@@ -936,7 +966,7 @@ def _agg_stream(expr, scan, in_cols, scan_cols, n, device):
     if idx is not None and in_cols[idx].stype in (*_INT_STYPES, SType.FLOAT64):
         dc = in_cols[idx]
         return dc.data, torch_expr.is_unsigned(dc.stype)
-    c = torch_expr.compile_expr(expr, scan_cols, n, device)
+    c = _expr("agg", expr, scan_cols, n, device)
     data = c.data.expand(n)
     if data.dtype not in (torch.int64, torch.float64):
         data = data.to(torch.int64)
@@ -1105,6 +1135,7 @@ def execute_device_groupby(node: qn.GroupByNode, txn) -> Optional[Relation]:
         return None  # no room for the tag word: the host engine
     global GENERAL_GROUPBY_COUNT
     GENERAL_GROUPBY_COUNT += 1
+    trace.note("counter", "GENERAL_GROUPBY_COUNT")
     device = txn.device
     in_cols = _to_device_cols(table.columns, table.names, scan.input_columns, device)
     by_name = dict(zip(table.names, table.columns))
@@ -1125,7 +1156,7 @@ def execute_device_groupby(node: qn.GroupByNode, txn) -> Optional[Relation]:
     mask = None
     if scan.where_expr is not None:
         mask = (
-            torch_expr.compile_expr(scan.where_expr, in_cols, n, device)
+            _expr("where", scan.where_expr, in_cols, n, device)
             .data.expand(n)
             .contiguous()
         )
@@ -1339,12 +1370,10 @@ def _scan_order_keys(scan, specs, in_cols, n, device, null_ranks, bounds):
     scan_cols = _LazyScanCols(scan, in_cols, n, device)
     mask = None
     if scan.where_expr is not None:
-        mask = torch_expr.compile_expr(
-            scan.where_expr, in_cols, n, device
-        ).data.expand(n)
+        mask = _expr("where", scan.where_expr, in_cols, n, device).data.expand(n)
     keys = [
         _device_host_order_key(
-            torch_expr.compile_expr(s.expr, scan_cols, n, device).full(n),
+            _expr("order", s.expr, scan_cols, n, device).full(n),
             s.descending,
             null_ranks[si],
         )
@@ -1423,6 +1452,7 @@ def try_execute_device_scan_topk(node: qn.LimitNode, txn) -> Optional[Relation]:
         return None
     global SCAN_TOPK_COUNT
     SCAN_TOPK_COUNT += 1
+    trace.note("counter", "SCAN_TOPK_COUNT")
     scan, table, mask, keys, n = prep
     w = min(w, n)
     lo = node.offset
@@ -1481,6 +1511,7 @@ def try_execute_device_scan_order(
         return None
     global SCAN_ORDER_COUNT
     SCAN_ORDER_COUNT += 1
+    trace.note("counter", "SCAN_ORDER_COUNT")
     scan, table, mask, keys, n = prep
     return _emit_scan_rows(scan, table, _masked_order_rows(mask, keys, n))
 
@@ -1744,7 +1775,7 @@ def _sum_stream(rsubj, scan, in_cols, scan_cols, n, device):
                 if torch_expr.is_unsigned(dc.stype):
                     return dc.data, 8 * dc.data.element_size(), True
                 return dc.data, 64, False
-    c = torch_expr.compile_expr(rsubj, scan_cols, n, device)
+    c = _expr("agg", rsubj, scan_cols, n, device)
     return c.data.expand(n).to(torch.int64).contiguous(), 64, False
 
 
@@ -1823,6 +1854,7 @@ def try_execute_device_join_groupby(
         return None
     global JOIN_GROUPBY_COUNT
     JOIN_GROUPBY_COUNT += 1
+    trace.note("counter", "JOIN_GROUPBY_COUNT")
     scan, table = plan["scan"], plan["table"]
     all_aggs, firsts = plan["all_aggs"], plan["firsts"]
     device = txn.device
@@ -1836,7 +1868,7 @@ def try_execute_device_join_groupby(
     mask = None
     for where, cols in ((scan.where_expr, in_cols), (plan["where_base"], scan_cols)):
         if where is not None:
-            m = torch_expr.compile_expr(where, cols, n, device).data.expand(n)
+            m = _expr("where", where, cols, n, device).data.expand(n)
             mask = m if mask is None else mask & m
     if mask is not None:
         mask = mask.contiguous()

@@ -42,31 +42,21 @@ from eventql_tpu_torch.plan.exprs import (
     ValueExpressionNode,
     has_aggregate_call,
 )
+from eventql_tpu_torch.utils import trace
 
 
 def execute_node(node: qn.QueryTreeNode, txn) -> Relation:
-    trace = getattr(txn, "trace", None)
-    if trace is not None:
-        import time as _time
-
-        depth = txn._trace_depth
-        txn._trace_depth += 1
-        t0 = _time.perf_counter()
-        try:
-            rel = _execute_node_inner(node, txn)
-        finally:
-            txn._trace_depth -= 1
-        trace.insert(
-            depth if depth < len(trace) else len(trace),
-            (
-                type(node).__name__,
-                depth,
-                _time.perf_counter() - t0,
-                getattr(rel, "num_rows", 0),
-            ),
-        )
-        return rel
-    return _execute_node_inner(node, txn)
+    sink = getattr(txn, "trace", None)
+    if not trace.ON and sink is None:
+        return _execute_node_inner(node, txn)
+    # an op.<PlanNode> span of the transaction's query, with its rows out;
+    # a traced transaction's own stage where no query.execute is open
+    # (chart rendering, the native server's streamed plans)
+    name = "op." + type(node).__name__
+    with trace.stage(name, getattr(txn, "query_id", None), sink) as sp:
+        rel = _execute_node_inner(node, txn)
+        sp.set("rows", getattr(rel, "num_rows", 0))
+    return rel
 
 
 def _execute_node_inner(node: qn.QueryTreeNode, txn) -> Relation:
@@ -836,16 +826,23 @@ def _exec_group_by_impl(node: qn.GroupByNode, txn) -> Relation:
             try_execute_string_groupby,
         )
 
-        result = try_execute_string_groupby(node, txn)
+        # a route.<name> span around each route tried: its analysis and,
+        # where it serves the plan, its run
+        with trace.span("route.string") as sp:
+            result = try_execute_string_groupby(node, txn)
+            sp.set("taken", result is not None)
         if result is not None:
             return result
-        result = try_execute_device_join_groupby(node, txn)
+        with trace.span("route.join") as sp:
+            result = try_execute_device_join_groupby(node, txn)
+            sp.set("taken", result is not None)
         if result is not None:
             return result
-        if device_plan_eligible(node):
-            result = execute_device_groupby(node, txn)
-            if result is not None:
-                return result
+        with trace.span("route.general") as sp:
+            result = execute_device_groupby(node, txn) if device_plan_eligible(node) else None
+            sp.set("taken", result is not None)
+        if result is not None:
+            return result
 
     child = execute_node(node.table, txn)
     n = child.num_rows
@@ -945,7 +942,9 @@ def _exec_order_by(node: qn.OrderByNode, txn) -> Relation:
             try_execute_device_scan_order,
         )
 
-        result = try_execute_device_scan_order(node, txn)
+        with trace.span("route.order") as sp:
+            result = try_execute_device_scan_order(node, txn)
+            sp.set("taken", result is not None)
         if result is not None:
             return result
 
@@ -1007,7 +1006,9 @@ def _exec_limit(node: qn.LimitNode, txn) -> Relation:
             try_execute_device_scan_topk,
         )
 
-        result = try_execute_device_scan_topk(node, txn)
+        with trace.span("route.topk") as sp:
+            result = try_execute_device_scan_topk(node, txn)
+            sp.set("taken", result is not None)
         if result is not None:
             return result
 

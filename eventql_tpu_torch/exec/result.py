@@ -15,9 +15,15 @@ from __future__ import annotations
 from typing import List, Optional
 
 from eventql_tpu_torch.exec.relation import Relation
+from eventql_tpu_torch.utils import trace
 
 
 class ResultList:
+    # the query that made the result (its transaction's id), which the
+    # query.emit span carries, and the list of a traced transaction
+    query_id = None
+    trace_sink = None
+
     def __init__(
         self,
         columns: List[str],
@@ -47,7 +53,8 @@ class ResultList:
     @property
     def rows(self) -> List[List[str]]:
         if self._rows is None:
-            self._rows = self._format_window(0, self._rel.num_rows)
+            with trace.stage("query.emit", self.query_id, self.trace_sink):
+                self._rows = self._format_window(0, self._rel.num_rows)
         return self._rows
 
     def iter_rows(self, lo: int = 0, hi: Optional[int] = None):

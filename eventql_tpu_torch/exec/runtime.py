@@ -28,6 +28,7 @@ from eventql_tpu_torch.plan.builder import QueryPlanBuilder, TableProvider
 from eventql_tpu_torch.plan.functions import DEFAULT_REGISTRY
 from eventql_tpu_torch.plan.scalar_eval import evaluate_scalar
 from eventql_tpu_torch.sql.parser import Parser
+from eventql_tpu_torch.utils import trace as _trace
 
 
 class TableInfo:
@@ -88,16 +89,18 @@ class Transaction:
         # per-query stats + shard progress (reference:
         # sql/scheduler/execution_context.h:30-54)
         self.exec_ctx = ExecutionContext()
-        # per-operator timing (survey §5: the reference has no tracer —
-        # an addition of this engine): list of
-        # (operator, depth, wall_seconds, output_rows) tuples, enabled
-        # by passing trace=[] or EVENTQL_TRACE=1
+        # the query's spans (survey §5: the reference has no tracer — an
+        # addition of this engine): every span of this transaction's
+        # plan, execution and emit carries its id. Passing trace=[] or
+        # EVENTQL_TRACE=1 traces the transaction: the tracer is on while
+        # its stages run, and their spans land in this list
+        # (utils/trace.py)
+        self.query_id = _trace.next_query_id()
         import os as _os
 
         if trace is None and _os.environ.get("EVENTQL_TRACE") == "1":
             trace = []
         self.trace = trace
-        self._trace_depth = 0
 
     def get_table_data(self, table_name: str) -> Relation:
         rel = self.tables.get_table_data(table_name)
@@ -122,12 +125,10 @@ class Transaction:
         return rel
 
     def trace_report(self) -> str:
-        if not self.trace:
-            return ""
-        out = []
-        for op, depth, secs, rows in self.trace:
-            out.append(f"{'  ' * depth}{op}: {secs * 1e3:.3f} ms, {rows} rows")
-        return "\n".join(out)
+        """The query's spans as a tree: operators in pre-order, each
+        with its milliseconds and rows, the routes, expressions,
+        kernels and readbacks nested where they ran."""
+        return _trace.report(self.trace or [])
 
 
 class PlanCache:
@@ -189,9 +190,11 @@ class QueryPlan:
             # never plans it — parser.cc:914; this exceeds it)
             lines = qn.explain_lines(node.child)
             return ResultList(["QUERY PLAN"], [[l] for l in lines])
-        rel = self._execute_traced(node)
-        result_columns = node.get_result_columns()
-        return ResultList.from_relation(result_columns, rel)
+        with _trace.stage("query.execute", self.txn.query_id, self.txn.trace):
+            rel = execute_node(node, self.txn)
+        res = ResultList.from_relation(node.get_result_columns(), rel)
+        res.query_id, res.trace_sink = self.txn.query_id, self.txn.trace
+        return res
 
     def execute_stream(self, idx: int):
         """Execute statement `idx` with bounded memory when its plan
@@ -210,9 +213,6 @@ class QueryPlan:
                 streaming.stream_node(node, self.txn),
             )
         return self.execute(idx)
-
-    def _execute_traced(self, node):
-        return execute_node(node, self.txn)
 
 
 def _resolve_device(device):
@@ -260,23 +260,25 @@ class Runtime:
                 f"transaction on device {txn.device} given to a Runtime on"
                 f" {self.device}"
             )
-        key = None
-        if self.plan_cache is not None:
-            version_fn = getattr(txn.tables, "plan_cache_key", None)
-            if version_fn is not None:
-                key = (id(txn.tables), version_fn(), query)
-                nodes = self.plan_cache.get(key)
-                if nodes is not None:
-                    return QueryPlan(self, txn, nodes)
-        parser = Parser()
-        statements = parser.parse(query)
-        builder = QueryPlanBuilder(self.registry)
-        nodes = builder.build_statements(statements, txn.tables)
-        if key is not None and all(
-            isinstance(n, qn.TableExpressionNode) for n in nodes
-        ):
-            self.plan_cache.put(key, nodes)
-        return QueryPlan(self, txn, nodes)
+        with _trace.stage("query.plan", txn.query_id, txn.trace) as sp:
+            key = None
+            if self.plan_cache is not None:
+                version_fn = getattr(txn.tables, "plan_cache_key", None)
+                if version_fn is not None:
+                    key = (id(txn.tables), version_fn(), query)
+                    nodes = self.plan_cache.get(key)
+                    sp.set("plan_cache", "miss" if nodes is None else "hit")
+                    if nodes is not None:
+                        return QueryPlan(self, txn, nodes)
+            parser = Parser()
+            statements = parser.parse(query)
+            builder = QueryPlanBuilder(self.registry)
+            nodes = builder.build_statements(statements, txn.tables)
+            if key is not None and all(
+                isinstance(n, qn.TableExpressionNode) for n in nodes
+            ):
+                self.plan_cache.put(key, nodes)
+            return QueryPlan(self, txn, nodes)
 
     def execute_query(self, txn: Transaction, query: str) -> List[ResultList]:
         plan = self.build_query_plan(txn, query)

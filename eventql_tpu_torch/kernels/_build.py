@@ -20,6 +20,8 @@ import threading
 import time
 from typing import Dict, List
 
+from eventql_tpu_torch.utils import trace
+
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
@@ -36,6 +38,10 @@ NVCC_FLAGS = [
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# libraries loaded into this process (each load may compile first), by
+# source name, since import: past the first query, a load is a kernel
+# built again
+BUILDS: Dict[str, int] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -121,11 +127,14 @@ def load(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    path = _lib_path(name)
-    if not os.path.exists(path):
-        build_all()
-    with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            lib = _LIBS[name] = ctypes.CDLL(path)
+    with trace.span("build") as sp:
+        sp.set("library", name)
+        path = _lib_path(name)
+        if not os.path.exists(path):
+            build_all()
+        with _LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                lib = _LIBS[name] = ctypes.CDLL(path)
+                BUILDS[name] = BUILDS.get(name, 0) + 1
     return lib

@@ -37,6 +37,7 @@ from typing import Optional
 import torch
 
 from eventql_tpu_torch.kernels import _build
+from eventql_tpu_torch.utils import trace
 
 # kernel launches of the wrapper (plain-version calls do not count)
 LAUNCHES = {"extract_ge": 0}
@@ -121,6 +122,7 @@ _STATES = {}  # (device index, stream) -> _State
 _STATES_LOCK = threading.Lock()
 
 
+@trace.spanned("kernel.extract_ge")
 def extract_ge(
     values: torch.Tensor, threshold: int, cap: int, n: Optional[int] = None
 ) -> torch.Tensor:

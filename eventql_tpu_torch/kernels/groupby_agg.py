@@ -49,6 +49,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from eventql_tpu_torch.kernels import _build
+from eventql_tpu_torch.utils import trace
 
 # kernel launches per wrapper (plain-version calls do not count)
 LAUNCHES = {"groupby_agg": 0, "groupby_multi_agg": 0}
@@ -268,6 +269,7 @@ def _checked(gid, n, num_buckets, values, mask, preds):
     return n, K
 
 
+@trace.spanned("kernel.groupby_agg")
 def groupby_agg(
     gid: torch.Tensor,
     n: int,
@@ -350,6 +352,7 @@ def _multi_args(streams, stream_bits, streams_unsigned):
     return streams, tuple(_value_mask(b) for b in stream_bits), tuple(streams_unsigned)
 
 
+@trace.spanned("kernel.groupby_multi_agg")
 def groupby_multi_agg(
     gid: torch.Tensor,
     n: int,

@@ -62,6 +62,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from eventql_tpu_torch.kernels import _build
+from eventql_tpu_torch.utils import trace
 from eventql_tpu_torch.kernels.groupby import (
     AGG_KINDS,
     masked_grouped_aggregate,
@@ -101,6 +102,7 @@ class Grouped(NamedTuple):
     dense: bool = False
 
 
+@trace.spanned("kernel.compact_groups")
 def compact_groups(g: Grouped, order="first_row", gather: Sequence[torch.Tensor] = ()):
     """The groups of ``g`` on its device: the occupied slots (count > 0;
     all of a dense result), ordered by their first rows (``order`` =
@@ -464,6 +466,7 @@ def _direct_tier(lib, tier, keys, n, mask, values, kinds, uns, distinct, key_spa
     return _grouped_of(outs, values, chunks, dist, False)
 
 
+@trace.spanned("kernel.hash_groupby")
 def hash_groupby(
     keys: Sequence[torch.Tensor],
     n: int,

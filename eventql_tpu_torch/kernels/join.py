@@ -61,6 +61,7 @@ import torch
 
 from eventql_tpu_torch.kernels import _build
 from eventql_tpu_torch.kernels.groupby_agg import groupby_agg
+from eventql_tpu_torch.utils import trace
 
 # kernel launches per wrapper (plain-version calls do not count)
 LAUNCHES = {"dim_join_gid": 0, "probe_join_gid": 0, "build_join_table": 0}
@@ -250,6 +251,7 @@ def _raise_cuda(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
+@trace.spanned("kernel.build_join_table")
 def build_join_table(dim_keys: torch.Tensor, dim_bucket: torch.Tensor) -> torch.Tensor:
     """The hash table ``probe_join_gid`` looks its fact keys up in, built
     on the card from D >= 1 dimension rows in any order: int64
@@ -277,6 +279,7 @@ def _no_rows(n, device):
     return torch.full((n,), -1, dtype=torch.int32, device=device)
 
 
+@trace.spanned("kernel.dim_join_gid")
 def dim_join_gid(
     fact_keys: torch.Tensor,
     dim_keys: torch.Tensor,
@@ -310,6 +313,7 @@ def dim_join_gid(
     return out
 
 
+@trace.spanned("kernel.probe_join_gid")
 def probe_join_gid(
     fact_keys: torch.Tensor,
     dim_keys: torch.Tensor,

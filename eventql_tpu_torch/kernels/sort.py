@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from eventql_tpu_torch.kernels.groupby import sortable_u64
+from eventql_tpu_torch.utils import trace
 
 # device -> host copies the host waits on (each one a synchronisation
 # on a CUDA device), and the bytes they copied, counted since import
@@ -34,10 +35,14 @@ READBACK_BYTES = 0
 
 
 def read_host(t: torch.Tensor) -> "np.ndarray":
+    """``t`` copied to host numpy, under a ``readback`` span."""
     global READBACKS, READBACK_BYTES
+    nbytes = t.numel() * t.element_size()
     READBACKS += 1
-    READBACK_BYTES += t.numel() * t.element_size()
-    return t.cpu().numpy()
+    READBACK_BYTES += nbytes
+    with trace.span("readback") as sp:
+        sp.set("bytes", nbytes)
+        return t.cpu().numpy()
 
 
 def _signed_order(key: torch.Tensor) -> torch.Tensor:
