@@ -46,7 +46,20 @@ Phases (any mismatch or exception ends the run with a non-zero code):
      rows equal an independent numpy answer and, on a 2^20-row prefix,
      the port's own host engine (G6 and G7 also their route's plain
      version, Runtime(device="cpu")); route and launch counters rose as
-     they must;
+     they must; the expression program's counters
+     (torch_expr.PROGRAM_LAUNCHES / PROGRAM_FALLBACKS) likewise set to 0
+     before each path and read after it;
+  4b. the expression program (kernels/csrc/expr_program.cu): every query
+     of phase 4 once more with each expression the routes evaluate held
+     bit for bit against the PyTorch path (torch_expr.compile_torch) on
+     the same tensors, the launch or fallback the rule predicts against
+     the counters, and phase 4's counts against its runs times these;
+     then TPC-H Q1 and Q6 as the benchmark sends them over a 2^26-row
+     LINEITEM (its columns stored as u16 / u32): six and two launches a
+     query, no fallback, each expression equal to the PyTorch path and
+     the rows equal to the plain version's; then the kernel alone at 2^26
+     rows (python3 -m eventql_tpu_torch.scripts.probe_expr_program) for
+     its row of the {"kernels": [...]} line;
   5. the main paths' shapes: every kernel call the queries of phase 4
      made is repeated on the same tensors through the wrapper and the
      plain version, which must be equal (tolerance 0); then CUDA-event
@@ -265,7 +278,7 @@ from eventql_tpu_torch.core.types import SType
 from eventql_tpu_torch.db.lsm import DurableTableService
 from eventql_tpu_torch.db.metadata import TableMetadata
 from eventql_tpu_torch.db.table_service import TableService
-from eventql_tpu_torch.exec import device_exec, mesh_exec
+from eventql_tpu_torch.exec import device_exec, mesh_exec, torch_expr
 from eventql_tpu_torch.exec.query_cache import QueryCache
 from eventql_tpu_torch.exec.relation import Column, Relation, dtype_for, relation_from_numpy
 from eventql_tpu_torch.exec.runtime import (
@@ -292,7 +305,8 @@ from eventql_tpu_torch.parallel.mesh_provider import MeshTableProvider
 from eventql_tpu_torch.plan import nodes as qn
 from eventql_tpu_torch.plan.coder import encode_plan
 from eventql_tpu_torch.plan.exprs import ColumnReferenceNode
-from eventql_tpu_torch.scripts import HBM_BYTES_PER_S, cuda_ms, probe_int8_ops, probe_radix
+from eventql_tpu_torch.scripts import (HBM_BYTES_PER_S, cuda_ms, probe_expr_program,
+                                       probe_int8_ops, probe_radix)
 from eventql_tpu_torch.server.http_api import EventQLServer
 from eventql_tpu_torch.server.listener import Listener
 from eventql_tpu_torch.server.native_tcp import NativeTCPClient, NativeTCPServer
@@ -925,6 +939,18 @@ def zero_launch_counts():
     for k in _KERNELS.values():
         for name in k.module.LAUNCHES:  # the table-build kernel's count too
             k.module.LAUNCHES[name] = 0
+
+
+# the expression program (kernels/csrc/expr_program.cu) is no wrapper with a
+# plain twin of the same signature: torch_expr counts its launches, and the
+# expressions that went to the PyTorch path, in two module counters
+def program_counts():
+    return {"launches": torch_expr.PROGRAM_LAUNCHES, "fallbacks": torch_expr.PROGRAM_FALLBACKS}
+
+
+def zero_program_counts():
+    torch_expr.PROGRAM_LAUNCHES = 0
+    torch_expr.PROGRAM_FALLBACKS = 0
 
 
 def check_extract(label, got, want, values, threshold, cap, rows):
@@ -1865,7 +1891,8 @@ def phase_main_path(device, n, n_prefix, reps):
     """Both paths of the port at ``n`` rows, then both on the prefix
     against the host engine. Returns a dict: launches (per kernel, the
     paths' counts added), launches_by_path, per_query, e2e, calls
-    (query -> list of (kernel, kwargs)), resident bytes."""
+    (query -> list of (kernel, kwargs)), resident bytes, program_by_path
+    (the expression program's launches and fallbacks on each path)."""
     t0 = time.perf_counter()
     cols, dictionary = make_table(n, seed=42)
     dims = make_dims(seed=43)
@@ -1884,16 +1911,20 @@ def phase_main_path(device, n, n_prefix, reps):
     plain_rt = Runtime(device="cpu")
 
     zero_launch_counts()
+    zero_program_counts()
     g_e2e, g_per_query, g_calls = groupby_path(rt, full, gqs, reps)
     g_launches = launch_counts()
+    g_program = program_counts()
     for name in ("groupby_agg", "groupby_multi_agg"):
         check(g_launches[name] > 0, f"{name}: not launched on the GROUP BY path")
     log(f"phase 4: {len(gqs)} GROUP BY queries x {reps} equal to numpy at {n}"
         f" rows; launches {g_launches}")
 
     zero_launch_counts()
+    zero_program_counts()
     h_e2e, h_per_query, h_calls = general_path(rt, full, hqs + cqs, reps)
     h_launches = launch_counts()
+    h_program = program_counts()
     for name, e in h_e2e.items():
         log(f"phase 4: {name}: {e['groups']} groups ({e['tier']}), a run reads back"
             f" {e['readback_bytes']} bytes in {e['readbacks']} copies; warm"
@@ -1906,8 +1937,10 @@ def phase_main_path(device, n, n_prefix, reps):
         f" rows, in order; launches {h_launches}")
 
     zero_launch_counts()
+    zero_program_counts()
     o_e2e, o_per_query, o_calls = order_path(rt, full, oqs, reps)
     o_launches = launch_counts()
+    o_program = program_counts()
     if n >= FAST_TOPK_ROWS:
         for name in ("groupby_agg", "extract_ge"):
             check(o_launches[name] > 0, f"{name}: not launched on the ORDER BY path")
@@ -1915,8 +1948,10 @@ def phase_main_path(device, n, n_prefix, reps):
         f" rows, in order; launches {o_launches}")
 
     zero_launch_counts()
+    zero_program_counts()
     j_e2e, j_per_query, j_calls = join_path(rt, full, jqs, reps)
     j_launches = launch_counts()
+    j_program = program_counts()
     for name in ("dim_join_gid", "probe_join_gid", "groupby_agg", "groupby_multi_agg"):
         check(j_launches[name] > 0, f"{name}: not launched on the JOIN path")
     # probe_join_gid is two device functions: every probe had its table built
@@ -1981,10 +2016,210 @@ def phase_main_path(device, n, n_prefix, reps):
         calls={**{q: [c] for q, c in g_calls.items()}, **h_calls, **o_calls, **j_calls},
         resident=resident,
         peak_general=peak,
+        # the expression program's launches and fallbacks, read as the
+        # kernels' are
+        program_by_path={"group_by": g_program, "general_group_by": h_program,
+                         "order_by": o_program, "join": j_program},
         # what phases 6 and 10 run again (over the mesh, over the wire)
-        tables=dict(full=full, rt=rt, gqs=gqs, hqs=hqs, oqs=oqs, jqs=jqs, cols=cols,
+        tables=dict(full=full, rt=rt, gqs=gqs, hqs=hqs, cqs=cqs, oqs=oqs, jqs=jqs, cols=cols,
                     dictionary=dictionary, dims=dims),
     )
+
+
+# -- phase 4b: the expression program ---------------------------------------------
+
+# TPC-H Q1 and Q6 as gpubench/traffic sends them, with one parameter set each
+# (DELTA 90 days; 1994, DISCOUNT 0.06, QUANTITY 24)
+BENCH_EXPR_QUERIES = {
+    "tpch_q1": ("select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,"
+                " sum(l_extendedprice) as sum_base_price, sum(l_extendedprice * (100 -"
+                " l_discount)) as sum_disc_price, sum(l_extendedprice * (100 - l_discount) *"
+                " (100 + l_tax)) as sum_charge, mean(l_quantity) as avg_qty,"
+                " mean(l_extendedprice) as avg_price, mean(l_discount) as avg_disc, count(1)"
+                " as count_order from lineitem where l_shipdate <= 10471 group by"
+                " l_returnflag, l_linestatus order by l_returnflag, l_linestatus;", 6),
+    "tpch_q6": ("select sum(l_extendedprice * l_discount) as revenue from lineitem where"
+                " l_shipdate >= 8766 and l_shipdate < 9131 and l_discount >= 5 and"
+                " l_discount <= 7 and l_quantity < 24;", 2),
+}
+
+
+def _words(t):
+    """A result plane as comparable words: floats by their bits, every NaN
+    as one word; integers and bools as they are."""
+    if t.dtype != torch.float64:
+        return t
+    w = t.view(torch.int64).clone()
+    w[torch.isnan(t)] = 0x7FF8000000000000
+    return w
+
+
+class _CheckedPrograms:
+    """While active, each expression a route evaluates
+    (torch_expr.compile_expr) runs as it does, then on the PyTorch path
+    (torch_expr.compile_torch) over the same columns; the two must be
+    equal bit for bit, validity included. What the rule predicts
+    (torch_expr.program_for: a launch, the stored column itself, or the
+    PyTorch path) is held against the counters' movement in that call.
+    ``tally``: query name -> launches, fallbacks, stored, instructions."""
+
+    def __init__(self):
+        self.tally, self.query = {}, None
+
+    def __enter__(self):
+        self.real = torch_expr.compile_expr
+        torch_expr.compile_expr = self._checked
+        return self
+
+    def __exit__(self, *exc):
+        torch_expr.compile_expr = self.real
+
+    def _checked(self, expr, columns, n, device=None):
+        prog = torch_expr.program_for(expr, columns)
+        before = program_counts()
+        got = self.real(expr, columns, n, device)
+        after = program_counts()
+        moved = (after["launches"] - before["launches"], after["fallbacks"] - before["fallbacks"])
+        if prog is None:
+            kind, want_moved = "fallbacks", (0, 1)
+        elif prog.identity is not None:
+            kind, want_moved = "stored", (0, 0)
+        else:
+            kind, want_moved = "launches", (int(n > 0), 0)
+        what = f"phase 4b: {self.query}: {expr}"
+        check(moved == want_moved, f"{what}: counters moved {moved}, the rule predicts {kind}")
+        want = torch_expr.compile_torch(expr, columns, n, device)
+        g, w = got.full(n), want.full(n)
+        check(got.stype == want.stype and g.data.dtype == w.data.dtype
+              and g.data.shape == w.data.shape == (n,),
+              f"{what}: type or shape differs from the PyTorch path")
+        diff = int((_words(g.data) != _words(w.data)).sum()) + int((g.valid != w.valid).sum())
+        check(diff == 0, f"{what}: {diff} words differ from the PyTorch path")
+        t = self.tally.setdefault(self.query,
+                                  dict(launches=0, fallbacks=0, stored=0, instructions=0))
+        t[kind] += want_moved[0] if kind == "launches" else 1
+        t["instructions"] += prog.ops if kind == "launches" else 0
+        del want, g, w
+        return got
+
+
+def lineitem_provider(n, seed):
+    """TPC-H LINEITEM's seven columns of Q1 and Q6 at n rows, drawn
+    uniformly over the spans of gpubench/configs/tpch_sf10_lineitem.json
+    (probe_expr_program.SPANS), so that the column cache stores them as the
+    benchmark's: u16 quantity, discount, tax and ship date, u32 price."""
+    rng = np.random.default_rng(seed)
+    ones = np.ones(n, bool)
+    names = list(probe_expr_program.SPANS)
+    spec = [(SType.UINT64, rng.integers(lo, hi + 1, n).astype(np.uint64), ones, None)
+            for lo, hi in probe_expr_program.SPANS.values()]
+    for name, values in (("l_returnflag", (b"A", b"N", b"R")), ("l_linestatus", (b"F", b"O"))):
+        names.append(name)
+        spec.append((SType.STRING, rng.integers(0, len(values), n).astype(np.int32), ones,
+                     np.array(values, dtype=object)))
+    p = RelationTableProvider()
+    p.add_table("lineitem", relation_from_numpy(names, spec))
+    return p
+
+
+def phase_expr_program(device, run, reps):
+    """The expression program on the main paths and the benchmark's TPC-H
+    queries, checked against its plain version (the PyTorch path), and
+    the kernel alone for its {"kernels": [...]} row. Returns its numbers."""
+    t0 = time.perf_counter()
+    tables = run["tables"]
+    paths = {"group_by": tables["gqs"], "general_group_by": tables["hqs"] + tables["cqs"],
+             "order_by": tables["oqs"],
+             # phase 4 runs the join queries the route serves (the others on the prefix)
+             "join": [q for q in tables["jqs"] if q[3] is not None]}
+    with _CheckedPrograms() as chk:
+        for path, qs in paths.items():
+            for name, sql, *_rest in qs:
+                chk.query = name
+                run_query(tables["rt"], tables["full"], sql)
+    by_path = {}
+    for path, qs in paths.items():
+        tally = {k: sum(chk.tally.get(q[0], {}).get(k, 0) for q in qs)
+                 for k in ("launches", "fallbacks", "stored")}
+        main = run["program_by_path"][path]
+        want = {k: reps * tally[k] for k in ("launches", "fallbacks")}
+        check(main == want, f"phase 4b: {path}: phase 4 counted {main}; {reps} runs of its"
+                            f" queries make {want}")
+        by_path[path] = dict(main, checked=tally)
+    check(sum(p["launches"] for p in by_path.values()) > 0,
+          "expr_program: not launched on a main path")
+    log(f"phase 4b: every expression of phase 4's queries equal to the PyTorch path; the"
+        f" program's launches / fallbacks on each path {by_path}")
+
+    n = N_ROWS
+    provider = lineitem_provider(n, seed=44)
+    rt = Runtime(plan_cache=PlanCache(), device=device)
+    bench = {}
+    for name, (sql, launches) in BENCH_EXPR_QUERIES.items():
+        run_query(rt, provider, sql)  # uploads the columns and builds the programs
+        zero_program_counts()
+        for _ in range(reps):
+            run_query(rt, provider, sql)
+        steady = program_counts()
+        check(steady == {"launches": reps * launches, "fallbacks": 0},
+              f"phase 4b: {name}: {steady} over {reps} runs; expected {launches} launches a"
+              f" query and no fallback")
+        with _CheckedPrograms() as chk:
+            chk.query = name
+            got = run_query(rt, provider, sql).rows
+        tally = chk.tally[name]
+        check((tally["launches"], tally["fallbacks"]) == (launches, 0),
+              f"phase 4b: {name}: checked {tally}")
+        real = torch_expr.compile_expr
+        torch_expr.compile_expr = torch_expr.compile_torch
+        try:
+            plain = run_query(rt, provider, sql).rows
+        finally:
+            torch_expr.compile_expr = real
+        check(got == plain and len(got) > 0,
+              f"phase 4b: {name}: rows differ from the plain version's")
+        bench[name] = dict(steady, checked=tally, rows=len(got))
+    del provider, rt
+    log(f"phase 4b: TPC-H Q1 and Q6 over {n} LINEITEM rows: {bench}")
+
+    zero_program_counts()
+    probe = probe_expr_program.probe(device, n)
+    probe["launches"] = program_counts()["launches"]
+    seconds = time.perf_counter() - t0
+    log(f"phase 4b: the kernel alone at {n} rows: "
+        + "; ".join(f"{k} {c['ms']:.5f} ms (bound {c['bound_ms']:.5f}, PyTorch path"
+                    f" {c['plain_ms']:.5f})" for k, c in probe["cases"].items())
+        + f"; {seconds:.1f} s in all")
+    return dict(by_path=by_path, bench=bench, probe=probe, seconds=seconds)
+
+
+def expr_program_row(expr_run):
+    """The {"kernels": [...]} row of the expression program: launches from
+    phase 4's runs (by path), the TPC-H queries' runs and the probe's; its
+    time, plain version's and bound at Q1's charge product (2^26 rows),
+    the probe's other expressions under ``other_shapes``."""
+    probe = expr_run["probe"]
+    head_name = "q1_charge"
+    head = probe["cases"][head_name]
+    launches_by_path = {p: c["launches"] for p, c in expr_run["by_path"].items()}
+    launches_by_path["tpch_q1_q6"] = sum(b["launches"] + b["checked"]["launches"]
+                                         for b in expr_run["bench"].values())
+    launches_by_path["probe"] = probe["launches"]
+    return dict(
+        name="expr_program", route="cuda",
+        source="eventql_tpu_torch/kernels/csrc/expr_program.cu", entry="evql_expr_program",
+        replaces="no TPU kernel: exec/torch_expr.py's PyTorch passes, one a node (the JAX"
+                 " package left each expression to XLA, which fused it)",
+        launches=sum(launches_by_path.values()), launches_by_path=launches_by_path,
+        fallbacks_by_path={p: c["fallbacks"] for p, c in expr_run["by_path"].items()},
+        # every result of phase 4b was checked equal (tolerance 0) before this row
+        max_abs_err=0, ms=head["ms"], plain_ms=head["plain_ms"], bound_ms=head["bound_ms"],
+        bound_by="bytes", library_ms=None,
+        library="none: no single library call evaluates an expression tree",
+        shape=f"{probe['n']} rows, {head['expr']} over {head['streams']}, int64 out",
+        bytes=head["bytes"], instructions=head["ops"],
+        other_shapes={k: c for k, c in probe["cases"].items() if k != head_name},
+        bench_queries=expr_run["bench"])
 
 
 # -- phase 5: the main paths' shapes, checked and timed -------------------------
@@ -5565,6 +5800,7 @@ def main():
     probe_errs = phase_kernels(device, N_KERNEL_CASE_ROWS)
     probe = phase_probes(device)
     run = phase_main_path(device, N_ROWS, N_PREFIX_ROWS, REPS)
+    expr_run = phase_expr_program(device, run, REPS)
     times = phase_times(device, run["calls"], parent)
     context = _topk_context(device, run["calls"])
     del run["calls"]
@@ -5639,6 +5875,7 @@ def main():
                     "hash_tier_peak_bytes"):
             if key in t:
                 kernels[-1][key] = t[key]
+    kernels.append(expr_program_row(expr_run))
     kernels += probe_kernel_rows(probe, probe_errs)
     log(json.dumps({"e2e_ms": run["e2e"], "rows": N_ROWS,
                     "launches_per_query": run["per_query"],

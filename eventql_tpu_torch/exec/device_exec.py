@@ -754,18 +754,21 @@ def _run_fused(fused_cfg, scan, in_cols, key_dev, key_all_valid, key_base, K,
 class _LazyScanCols:
     """The scan's select list as device columns, each evaluated when it
     is first indexed: a query reads few of them, and an eager pass would
-    widen every narrowed column to 64 bits for nothing."""
+    widen every narrowed column to 64 bits for nothing. The expression
+    program reads no column of it: it substitutes each reference's
+    select-list expression (``exprs``) over the stored input columns
+    (``stored``); the PyTorch path indexes it."""
 
     def __init__(self, scan, in_cols, n, device):
-        self._scan, self._in_cols, self._n, self._device = scan, in_cols, n, device
+        self.exprs = [sl.expr for sl in scan.select_list]
+        self.stored, self._n, self._device = in_cols, n, device
         self._cols = {}
 
     def __getitem__(self, i):
         col = self._cols.get(i)
         if col is None:
-            col = self._cols[i] = torch_expr.compile_expr(
-                self._scan.select_list[i].expr, self._in_cols, self._n,
-                self._device,
+            col = self._cols[i] = torch_expr.compile_torch(
+                self.exprs[i], self.stored, self._n, self._device,
             ).full(self._n)
         return col
 

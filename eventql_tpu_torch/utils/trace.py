@@ -195,12 +195,13 @@ def spanned(name: str):
     return wrap
 
 
-def note(key: str, value) -> None:
-    """Set an attribute of the innermost span open on this thread, if any."""
+def note(key: str, value, span: Optional[str] = None) -> None:
+    """Set an attribute of the innermost span open on this thread, if any
+    (and if it is named ``span``, where that is given)."""
     if not ON:
         return
     stack = getattr(_LOCAL, "stack", None)
-    if stack:
+    if stack and (span is None or stack[-1].name == span):
         stack[-1].attrs[key] = value
 
 

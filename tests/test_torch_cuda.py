@@ -1024,3 +1024,164 @@ def test_embedded_server_on_the_card(cuda_device):
         clib.evql_conf_free(conf)
         os.close(kill_r)
         os.close(kill_w)
+
+
+# -- the expression program (kernels/csrc/expr_program.cu) ------------------------
+
+
+def _words(t):
+    """A result plane as comparable words: floats by their bits, every NaN
+    as one word; integers and bools as they are."""
+    if t.dtype != torch.float64:
+        return t
+    w = t.view(torch.int64).clone()
+    w[torch.isnan(t)] = 0x7FF8000000000000
+    return w
+
+
+def _same_on_card(got, want, n, what):
+    assert got.stype == want.stype and got.data.dtype == want.data.dtype, what
+    g, w = got.full(n), want.full(n)
+    assert g.data.shape == w.data.shape == (n,), what
+    assert torch.equal(_words(g.data), _words(w.data)), what
+    assert torch.equal(g.valid, w.valid), what
+
+
+@pytest.mark.parametrize("n", [1, 1023, 1024, 1025, (1 << 26) + 3])
+def test_expr_program_equals_the_torch_path_on_the_card(cuda_device, n):
+    """Every snippet of the corpus (tests/test_torch_expr_program.py: every
+    stored width, u64 values and literals above 2^63, NULL-bearing columns
+    under isnull / if, NaN and -0.0) as one kernel launch against the
+    PyTorch path, bit for bit, at one row, at a block's edge and past it,
+    and at 2^26 + 3 rows; the fallbacks launch nothing."""
+    from test_torch_expr_program import EXTRA, FALLBACK, SNIPPETS, corpus_relation, planned, \
+        provider_of
+    from eventql_tpu_torch.exec import torch_expr
+
+    provider = provider_of(t=corpus_relation(n, seed=n % 997))
+    for snippet in SNIPPETS + EXTRA:
+        _scan, expr, cols = planned(snippet, provider, cuda_device)
+        before = torch_expr.PROGRAM_LAUNCHES
+        got = torch_expr.compile_expr(expr, cols, n, cuda_device)
+        launched = torch_expr.PROGRAM_LAUNCHES - before
+        want = torch_expr.compile_torch(expr, cols, n, cuda_device)
+        _same_on_card(got, want, n, snippet)
+        # the data decides what is a stored column as it is (n = 1 narrows u)
+        prog = torch_expr.program_for(expr, cols)
+        assert (prog is None) == (snippet in FALLBACK), snippet
+        assert launched == int(prog is not None and prog.identity is None), snippet
+        del got, want
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 5])
+def test_expr_program_on_sliced_streams_on_the_card(cuda_device, offset):
+    """The corpus over streams that start ``offset`` elements into their
+    allocation (data) and ``offset + 1`` (validity): off every 16-byte
+    boundary, so the kernel reads them with scalar loads."""
+    from test_torch_expr_program import EXTRA, SNIPPETS, corpus_relation, planned, provider_of
+    from eventql_tpu_torch.exec import torch_expr
+
+    def off(t, k):
+        big = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+        big[k:] = t
+        return big[k:]
+
+    n = 100_003
+    provider = provider_of(t=corpus_relation(n, seed=offset))
+    for snippet in SNIPPETS + EXTRA:
+        _scan, expr, cols = planned(snippet, provider, cuda_device)
+        prog = torch_expr.program_for(expr, cols)
+        if prog is None or prog.identity is not None:
+            continue
+        sliced = [torch_expr.DeviceCol(c.stype, off(c.data, offset), off(c.valid, offset + 1))
+                  for c in cols]
+        before = torch_expr.PROGRAM_LAUNCHES
+        got = torch_expr.compile_expr(expr, sliced, n, cuda_device)
+        assert torch_expr.PROGRAM_LAUNCHES == before + 1, snippet
+        _same_on_card(got, torch_expr.compile_torch(expr, cols, n, cuda_device), n, snippet)
+
+
+def test_q1_on_the_card_runs_one_program_an_expression(cuda_device, monkeypatch, tmp_path):
+    """TPC-H Q1 (gpubench/traffic/tpch_q1.json) through Runtime(device=
+    "cuda") at 2^20 rows, profiled after a first run: its six expressions
+    (the WHERE, two products, three means) run as six launches of the
+    program kernel, the only kernels launched inside the routes' expr
+    calls (no PyTorch elementwise kernel), no fallback; rows equal to the
+    host engine's."""
+    import json
+
+    from test_torch_expr_program import BENCH_QUERIES, lineitem_relation, provider_of
+    from eventql_tpu_torch.exec import device_exec, torch_expr
+    from eventql_tpu_torch.exec.runtime import Runtime
+
+    name, sql, _table, launches = BENCH_QUERIES[0]
+    assert name == "tpch_q1" and launches == 6
+    provider = provider_of(lineitem=lineitem_relation(1 << 20))
+
+    def run(rt):
+        return rt.build_query_plan(rt.new_transaction(provider), sql).execute(0).rows
+
+    rt = Runtime(device=cuda_device)
+    want = run(Runtime(device=None))
+    assert run(rt) == want  # uploads the columns and builds the programs
+    expr = device_exec._expr
+
+    def annotated(role, e, columns, n, device):
+        with torch.profiler.record_function("expr-call"):
+            return expr(role, e, columns, n, device)
+
+    monkeypatch.setattr(device_exec, "_expr", annotated)
+    before = (torch_expr.PROGRAM_LAUNCHES, torch_expr.PROGRAM_FALLBACKS)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        got = run(rt)
+        torch.cuda.synchronize()
+    assert got == want
+    assert (torch_expr.PROGRAM_LAUNCHES - before[0],
+            torch_expr.PROGRAM_FALLBACKS - before[1]) == (6, 0)
+    path = tmp_path / "q1.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    calls = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("cat") == "user_annotation" and e.get("name") == "expr-call"]
+    launched_at = {e["args"]["correlation"]: e["ts"] for e in events
+                   if e.get("cat", "").startswith("cuda_")
+                   and "correlation" in e.get("args", {})}
+    inside = [e["name"] for e in events if e.get("cat") == "kernel"
+              and any(a <= launched_at.get(e["args"].get("correlation"), -1) <= b
+                      for a, b in calls)]
+    assert len(calls) == 6
+    assert len(inside) == 6 and all("expr_program_kernel" in k for k in inside), inside
+
+
+def test_routes_take_the_program_on_the_card(cuda_device):
+    """The top-k, ORDER BY, join, general GROUP BY and mesh routes
+    (tests/test_torch_expr_program.py's ROUTE_QUERIES, the mesh over 4
+    shards on the card) launch the program for their expressions, with
+    no fallback, and answer as the host engine does."""
+    from test_torch_expr_program import ROUTE_QUERIES, route_provider, run_route_query
+    from eventql_tpu_torch.exec import device_exec, mesh_exec, torch_expr
+
+    for name, sql, counter, module, launches in ROUTE_QUERIES:
+        mod = {"device_exec": device_exec, "mesh_exec": mesh_exec}[module]
+        mesh = module == "mesh_exec"
+        provider = route_provider(n=200_003, mesh_shards=4 if mesh else None,
+                                  mesh_device="cuda")
+        before, routed = (torch_expr.PROGRAM_LAUNCHES, torch_expr.PROGRAM_FALLBACKS), \
+            getattr(mod, counter)
+        got = run_route_query(provider, sql, None if mesh else cuda_device)
+        assert getattr(mod, counter) == routed + 1, name
+        assert (torch_expr.PROGRAM_LAUNCHES - before[0],
+                torch_expr.PROGRAM_FALLBACKS - before[1]) == (launches, 0), name
+        assert got == run_route_query(route_provider(n=200_003), sql, None), name
+
+
+def test_expr_program_probe_on_the_card(cuda_device):
+    """The probe of the kernel alone at 2^20 rows: each case equal to the
+    PyTorch path and timed."""
+    from eventql_tpu_torch.scripts import probe_expr_program
+
+    res = probe_expr_program.main(["--n", str(1 << 20)])
+    assert all(c["ms"] > 0 and c["ops"] > 0 for c in res["cases"].values())

@@ -26,6 +26,8 @@ from eventql_tpu_torch.exec.runtime import (
     RelationTableProvider as TorchProvider,
     Runtime as TorchRuntime,
 )
+# the corpus, shared with the expression program's tests (CPU and card)
+from test_torch_expr_program import SNIPPETS
 
 N = 2000
 
@@ -128,41 +130,6 @@ def _compile_both(snippet):
     return out_j, out_t
 
 
-SNIPPETS = [
-    # arithmetic, wrapping mod 2^64
-    "u + u2", "u - u2", "u * u2", "i + small", "i * 3", "i - small * 1000",
-    "un + w", "w * w", "un * 65535 + 1", "f * 2.5", "f + fp", "f - 1.5",
-    # float division of every integer kind (u64 -> f64 above 2^63)
-    "u / u2", "i / small", "un / 7", "f / 0.0",
-    # unsigned order above 2^63; signed; narrowed operands; floats
-    "u < u2", "u <= u2", "u > u2", "u >= u2", "u = u2", "u != u2",
-    "u > 9223372036854775808", "u2 <= 18446744073709551615",
-    "i < 0", "i >= small", "small = -7", "small != -7", "un < 500",
-    "w >= 2147483648", "f > 0.5", "f <= fp", "ts < 1125899906842624",
-    # strings compare as dictionary ids
-    "s = s2", "s != s2", "s < s2",
-    # logic
-    "u < u2 and i < 0", "u < u2 or i < 0", "!(f > 0.5)",
-    "(un < 500 or w >= 2147483648) and small != -3",
-    # if
-    "if(i < 0, u, u2)", "if(un < 500, small, i)", "if(f > 0, f, fp)",
-    "if(u < u2, un, w)",
-    # negation
-    "-u", "-i", "-small", "-f", "-un",
-    # conversions
-    "to_int64(u)", "to_uint64(i)", "to_float64(u)", "to_float64(i)",
-    "to_float64(w)", "to_uint64(fp)", "to_int64(f)", "truncate(f)",
-    "truncate(u)", "to_uint64(small < 0)", "to_float64(un < 500)",
-    "to_timestamp64(i)", "to_int64(ts)", "to_uint64(ts)",
-    # modulo with a non-zero literal divisor, pow, timestamps
-    "u % 1000", "u % 9223372036854775809", "un % 7", "i % -7", "small % -5",
-    "f % 2.5", "pow(un, 2)", "pow(small, 2)", "from_timestamp(small)",
-    "from_timestamp(f)", "to_uint64(f)", "to_int64(fp)", "to_int64(f / 0.0)",
-    "to_uint64(f / 0.0)",
-    # null tags: refs propagate, calls clear, isnull reads them
-    "un", "s2", "isnull(un)", "isnull(un + 1)", "if(isnull(un), w, un)",
-    "if(small < 0, un, w)",
-]
 
 
 @pytest.mark.parametrize("snippet", SNIPPETS)

@@ -671,4 +671,5 @@ def test_kernel_build_needs_a_compiler(tmp_path, monkeypatch):
         pytest.skip("a CUDA toolkit is installed here")
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.build_all()
-    assert _build.sources() == ["extract", "groupby_agg", "hash_groupby", "join", "probes"]
+    assert _build.sources() == ["expr_program", "extract", "groupby_agg", "hash_groupby", "join",
+                                "probes"]

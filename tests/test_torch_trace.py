@@ -19,7 +19,9 @@ from eventql_tpu_torch.exec import device_exec
 from eventql_tpu_torch.exec.relation import relation_from_numpy
 from eventql_tpu_torch.exec.runtime import PlanCache, RelationTableProvider, Runtime, Transaction
 from eventql_tpu_torch.kernels import _build
+from eventql_tpu_torch.exec import torch_expr
 from eventql_tpu_torch.utils import trace
+from test_torch_expr_program import BENCH_QUERIES, bench_provider, program_on_cpu  # noqa: F401
 
 
 @pytest.fixture
@@ -129,6 +131,29 @@ def test_group_by_spans_one_query_from_plan_to_emit():
     assert txn2.query_id != txn.query_id
     assert by2["query.plan"][0].attrs == {"plan_cache": "hit"} and not by2["upload"]
     assert device_exec.COLUMN_UPLOADS - uploads == 3
+
+
+@pytest.mark.parametrize("program", [True, False], ids=["program", "torch path"])
+@pytest.mark.parametrize("name,sql,_table,launches", BENCH_QUERIES,
+                         ids=[q[0] for q in BENCH_QUERIES])
+def test_expr_spans_carry_program_and_ops(name, sql, _table, launches, program, request):
+    """A traced transaction of each benchmark query: every ``expr`` span
+    says whether the expression ran as a program and how many
+    instructions it had; the counters move by the launches the cell
+    expects (Q1 6, Q6 2, Q2 and Q9 1, Q7 and Q8 none) and no fallback.
+    On the CPU's own PyTorch path: no program, 0 instructions, no count."""
+    if program:
+        request.getfixturevalue("program_on_cpu")
+    provider = bench_provider()
+    rt = Runtime(device="cpu")
+    before = (torch_expr.PROGRAM_LAUNCHES, torch_expr.PROGRAM_FALLBACKS)
+    txn, _rows = _run(rt, provider, sql, Transaction(provider, trace=[], device=rt.device))
+    exprs = _by_name(txn.trace)["expr"]
+    assert len(exprs) == launches, name
+    for s in exprs:
+        assert s.attrs["program"] is program and (s.attrs["ops"] > 0) is program, s.attrs
+    moved = (torch_expr.PROGRAM_LAUNCHES - before[0], torch_expr.PROGRAM_FALLBACKS - before[1])
+    assert moved == ((launches, 0) if program else (0, 0)), name
 
 
 def test_route_spans_of_the_order_and_top_k_routes(tracer):
