@@ -28,10 +28,11 @@ if __name__ == "__main__":
 from gpubench import compare, harness, workload  # noqa: E402
 
 
-def control_readings(workload_name, seed, device, sizes=None):
+def control_readings(workload_name, seed, device, sizes=None, bench=None):
     """The control's numbers on one seed: the reference at the lower
-    precision, printed as the program prints, against the reference."""
-    cell = harness.Cell(workload_name, sizes)
+    precision, printed as the program prints, against the reference.
+    ``bench`` (tests only) names another benchmark file than BENCHMARK.json."""
+    cell = harness.Cell(workload_name, sizes, bench)
     instances, _ = workload.plan(cell.traffic, seed)
     tables = cell.generate(seed, device)
     expected = harness.reference_answers(cell, tables, instances)

@@ -5,10 +5,18 @@ reduce the records to the cell's metrics.
 
 Everything particular to a configuration, a traffic mix or a metric is
 found by name: ``configs/<config>.json`` and ``configs/<config>.py`` (its
-generator), ``reference/<config>.py`` (one function per query shape),
+generator), ``reference/<config>.py`` (one function per query shape) or
+``reference/<config>/<shape>.py`` (a shape's function in a file of its own),
 ``traffic/<traffic>.json`` and ``metrics/<metric>.py`` (one ``read(run)``
 each). ``layers.json`` names each layer's modules, counters and kernels,
 ``peaks.json`` each card's peak bandwidth.
+
+A traffic query's ``reads`` is a list of ``query["table"]``'s columns, or
+a mapping from each table it reads to its columns. It reads every row of
+those tables: its ``rows`` are their sum, its logical bytes each table's
+rows times the narrowest widths of its columns. The reference function
+gets the list form's one table as ``{column: tensor}``, and the mapping
+form's tables as ``{table: {column: tensor}}``, the columns it names.
 """
 
 import contextlib
@@ -25,6 +33,7 @@ from gpubench import compare, tracing, workload
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+BENCHMARK = os.path.join(ROOT, "BENCHMARK.json")
 FORBIDDEN = ("jax", "jaxlib", "flax", "eventql_tpu")
 
 
@@ -59,18 +68,28 @@ def _one(items, name, what):
 
 
 class Cell:
-    """A workload of BENCHMARK.json with its configuration, traffic,
-    generator and reference, found by name."""
+    """A workload of a benchmark file with its configuration, traffic,
+    generator and references, found by name.
 
-    def __init__(self, workload_name, sizes=None):
-        self.bench = _json(os.path.join(ROOT, "BENCHMARK.json"))
+    The benchmark file is BENCHMARK.json unless ``bench`` names another
+    (tests only). Its directory is the root that configuration files are
+    named from, and its first ``paths`` entry holds ``traffic/`` and
+    ``reference/``. The metric readers, ``layers.json`` and ``peaks.json``
+    are always the harness's own."""
+
+    def __init__(self, workload_name, sizes=None, bench=None):
+        bench = bench or BENCHMARK
+        root = os.path.dirname(os.path.abspath(bench))
+        self.bench = _json(bench)
+        home = os.path.join(root, self.bench["paths"][0])
         self.workload = _one(self.bench["workloads"], workload_name, "workload")
         entry = _one(self.bench["configs"], self.workload["config"], "config")
-        self.config = dict(_json(os.path.join(ROOT, entry["file"])), **(sizes or {}))
-        stem = os.path.join(ROOT, entry["file"])[: -len(".json")]
-        self.generator = _load(stem + ".py")
-        self.reference = _load(os.path.join(HERE, "reference", entry["name"] + ".py"))
-        self.traffic = _json(os.path.join(HERE, "traffic", self.workload["traffic"] + ".json"))
+        path = os.path.join(root, entry["file"])
+        self.config = dict(_json(path), **(sizes or {}))
+        self.generator = _load(path[: -len(".json")] + ".py")
+        self.traffic = _json(os.path.join(home, "traffic", self.workload["traffic"] + ".json"))
+        self.references = references(os.path.join(home, "reference", entry["name"]),
+                                     [q["shape"] for q in self.traffic["queries"]])
         self.layers = _json(os.path.join(HERE, "layers.json"))
 
     def metrics(self, kind):
@@ -87,6 +106,32 @@ class Cell:
     def dictionaries(self):
         return {c["name"]: list(c["values"])
                 for cols in self.config["tables"].values() for c in cols if c["type"] == "STRING"}
+
+
+def references(stem, shapes):
+    """{shape: reference function}: the function named after the shape in
+    ``<stem>.py``, or else in ``<stem>/<shape>.py``."""
+    common = _load(stem + ".py") if os.path.isfile(stem + ".py") else None
+    return {shape: getattr(common, shape, None) or getattr(_load(os.path.join(stem, shape + ".py")), shape)
+            for shape in shapes}
+
+
+def reads(query):
+    """{table: [column]} that a traffic query reads."""
+    r = query["reads"]
+    return r if isinstance(r, dict) else {query["table"]: r}
+
+
+def count_reads(instances, summary, table_rows):
+    """Set each instance's ``rows`` (the rows of every table it reads) and
+    ``read_bytes`` (each table's rows times the narrowest widths that hold
+    its columns' generated spans)."""
+    widths = {k: _width(lo, hi) for k, (lo, hi, _) in summary.items()}
+    for inst in instances:
+        r = reads(inst["query"])
+        inst["rows"] = sum(table_rows[t] for t in r)
+        inst["read_bytes"] = sum(table_rows[t] * sum(widths[(t, c)] for c in cols)
+                                 for t, cols in r.items())
 
 
 def summarize(tables):
@@ -157,13 +202,14 @@ def _power_limit():
         return f"not read ({e})"
 
 
-def run_cell(workload_name, seed, seconds, trace, t_start, device="cuda", sizes=None):
+def run_cell(workload_name, seed, seconds, trace, t_start, device="cuda", sizes=None, bench=None):
     """One run of a cell; returns the result line as a dict. ``device="cpu"``
-    (tests only) runs the port's plain PyTorch route on the CPU."""
+    (tests only) runs the port's plain PyTorch route on the CPU; ``bench``
+    (tests only) names another benchmark file than BENCHMARK.json."""
     import torch
     from eventql_tpu_torch.exec.runtime import PlanCache, RelationTableProvider, Runtime
 
-    cell = Cell(workload_name, sizes)
+    cell = Cell(workload_name, sizes, bench)
     on_card = device == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
 
@@ -182,11 +228,7 @@ def run_cell(workload_name, seed, seconds, trace, t_start, device="cuda", sizes=
     rt = Runtime(plan_cache=PlanCache(), device=device)
 
     instances, order = workload.plan(cell.traffic, seed)
-    widths = {k: _width(lo, hi) for k, (lo, hi, _) in summary.items()}
-    for inst in instances:
-        q = inst["query"]
-        inst["rows"] = table_rows[q["table"]]
-        inst["read_bytes"] = inst["rows"] * sum(widths[(q["table"], c)] for c in q["reads"])
+    count_reads(instances, summary, table_rows)
 
     span = tracing.annotate if trace else (lambda name: contextlib.nullcontext())
 
@@ -301,11 +343,20 @@ def _by_shape(queries):
     return {s: {"n": len(v), "mean_ms": 1e3 * sum(v) / len(v)} for s, v in sorted(by.items())}
 
 
+def reference_input(tables, query):
+    """What a query's reference function reads: the list form's one table,
+    or the mapping form's tables with the columns it names."""
+    r = query["reads"]
+    if isinstance(r, dict):
+        return {t: {c: tables[t][c] for c in cols} for t, cols in r.items()}
+    return tables[query["table"]]
+
+
 def reference_answers(cell, tables, instances, low=False):
     """The reference's groups for every instance (computed once a text)."""
     dicts = cell.dictionaries()
-    return [getattr(cell.reference, inst["shape"])(tables[inst["query"]["table"]], dicts,
-                                                   inst["params"], low=low)
+    return [cell.references[inst["shape"]](reference_input(tables, inst["query"]), dicts,
+                                           inst["params"], low=low)
             for inst in instances]
 
 

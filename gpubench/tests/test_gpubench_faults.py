@@ -6,7 +6,8 @@ produced, half of each table left out, and an answer returned unchanged
 from an earlier query. A fourth kind, the exchange between chips left
 out, cannot happen in these one-chip cells. The
 control is the reference one precision below the configuration's
-(int32 integers, float32 means) in the program's place."""
+(int32 integers, float32 means) in the program's place. The cells are
+BENCHMARK.json's and the test-only fixtures' (a join of two tables)."""
 
 import time
 
@@ -14,7 +15,7 @@ import numpy as np
 import pytest
 
 from gpubench import control, harness
-from gpubench.tests.tiny import CELLS, sizes
+from gpubench.tests.tiny import ALL_CELLS, sizes
 
 SEED = 2**31 + 37
 
@@ -70,17 +71,17 @@ FAULTS = {"altered_answer": altered_answer, "half_the_rows": half_the_rows, "sta
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
-@pytest.mark.parametrize("cell_name", CELLS)
-def test_a_fault_makes_the_run_not_correct(cell_name, fault, monkeypatch):
+@pytest.mark.parametrize("bench, cell_name", ALL_CELLS)
+def test_a_fault_makes_the_run_not_correct(bench, cell_name, fault, monkeypatch):
     FAULTS[fault](monkeypatch)
     result = harness.run_cell(cell_name, SEED, 0.3, False, time.perf_counter(),
-                              device="cpu", sizes=sizes(cell_name))
+                              device="cpu", sizes=sizes(cell_name, bench), bench=bench)
     assert result["attempted"] > 0
     assert not result["correct"], result["checks"]
 
 
-@pytest.mark.parametrize("cell_name", CELLS)
-def test_the_control_fails_a_limit(cell_name):
-    readings = control.control_readings(cell_name, SEED, "cpu", sizes(cell_name))
-    limits = harness.Cell(cell_name).traffic["checks"]
+@pytest.mark.parametrize("bench, cell_name", ALL_CELLS)
+def test_the_control_fails_a_limit(bench, cell_name):
+    readings = control.control_readings(cell_name, SEED, "cpu", sizes(cell_name, bench), bench=bench)
+    limits = harness.Cell(cell_name, bench=bench).traffic["checks"]
     assert any(v is not None and v > limits[k] for k, v in readings.items()), readings

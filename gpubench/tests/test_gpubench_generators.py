@@ -1,41 +1,39 @@
 """Each generator is deterministic from its seed and keeps to its
 configuration file's schema and ranges."""
 
-import json
-import os
-
 import pytest
 import torch
 
 from gpubench import harness
-from gpubench.tests.tiny import CONFIGS, TINY
+from gpubench.tests.tiny import ALL_CONFIGS, sizes
 
 SEED = 2**31 + 11
 
 
-def _cell_of(config):
-    bench = harness._json(os.path.join(harness.ROOT, "BENCHMARK.json"))
-    return next(w["name"] for w in bench["workloads"] if w["config"] == config)
+def _cell(config, bench=None):
+    """A cell of the configuration, at its test sizes."""
+    name = next(w["name"] for w in harness._json(bench or harness.BENCHMARK)["workloads"]
+                if w["config"] == config)
+    return harness.Cell(name, sizes=sizes(name, bench), bench=bench)
 
 
-def _generate(config, seed):
-    return harness.Cell(_cell_of(config), sizes=TINY[config]).generate(seed, "cpu")
+def _generate(config, seed, bench=None):
+    return _cell(config, bench).generate(seed, "cpu")
 
 
-@pytest.mark.parametrize("config", CONFIGS)
-def test_same_seed_same_tables_other_seed_other_tables(config):
-    a, b, c = _generate(config, SEED), _generate(config, SEED), _generate(config, SEED + 1)
+@pytest.mark.parametrize("bench, config", ALL_CONFIGS)
+def test_same_seed_same_tables_other_seed_other_tables(bench, config):
+    a, b, c = _generate(config, SEED, bench), _generate(config, SEED, bench), _generate(config, SEED + 1, bench)
     for t in a:
         for name in a[t]:
             assert torch.equal(a[t][name], b[t][name]), name
         assert any(a[t][n].shape != c[t][n].shape or not torch.equal(a[t][n], c[t][n]) for n in a[t])
 
 
-@pytest.mark.parametrize("config", CONFIGS)
-def test_schema_and_ranges(config):
-    with open(os.path.join(harness.HERE, "configs", config + ".json")) as f:
-        cfg = json.load(f)
-    tables = _generate(config, SEED)
+@pytest.mark.parametrize("bench, config", ALL_CONFIGS)
+def test_schema_and_ranges(bench, config):
+    cell = _cell(config, bench)
+    cfg, tables = cell.config, cell.generate(SEED, "cpu")
     assert set(tables) == set(cfg["tables"])
     for t, specs in cfg["tables"].items():
         assert list(tables[t]) == [s["name"] for s in specs]
@@ -54,7 +52,7 @@ def test_schema_and_ranges(config):
 
 
 def test_tpch_rules():
-    cfg = TINY["tpch_sf10_lineitem"]
+    cfg = _cell("tpch_sf10_lineitem").config
     li = _generate("tpch_sf10_lineitem", SEED)["lineitem"]
     n_orders = cfg["orders"]
     assert n_orders <= li["l_quantity"].numel() <= 7 * n_orders
@@ -72,7 +70,7 @@ def test_tpch_rules():
 
 
 def test_hits_distinct_users_and_shares():
-    cfg = dict(harness.Cell("hits_dashboard").config, **TINY["clickbench_hits"])
+    cfg = _cell("clickbench_hits").config
     hits = _generate("clickbench_hits", SEED)["hits"]
     assert hits["UserID"].numel() == cfg["rows"]
     assert torch.unique(hits["UserID"]).numel() == cfg["distinct_users"]

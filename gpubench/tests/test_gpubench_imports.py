@@ -2,6 +2,7 @@
 jax, jaxlib, flax or eventql_tpu (whole names: eventql_tpu_torch is the
 port), and the reference loads nothing of the port."""
 
+import os
 import subprocess
 import sys
 import types
@@ -21,9 +22,12 @@ print(json.dumps({"correct": r["correct"], "bad": harness.forbidden_modules(),
 LOAD_THE_REFERENCE = """
 import json, sys
 from gpubench import harness
-for config in ("tpch_sf10_lineitem", "clickbench_hits"):
-    harness._load(harness.os.path.join(harness.HERE, "reference", config + ".py"))
-print(json.dumps(sorted({m.split(".")[0] for m in sys.modules})))
+from gpubench.tests.tiny import BENCHES
+files = set()
+for bench in BENCHES:
+    for w in harness._json(bench)["workloads"]:
+        files |= {f.__code__.co_filename for f in harness.Cell(w["name"], bench=bench).references.values()}
+print(json.dumps({"files": sorted(files), "tops": sorted({m.split(".")[0] for m in sys.modules})}))
 """
 
 
@@ -44,8 +48,14 @@ def test_a_run_loads_no_jax_module():
 
 
 def test_the_reference_loads_nothing_of_the_port():
-    tops = set(_run(LOAD_THE_REFERENCE))
-    assert not tops & {"jax", "jaxlib", "flax", "eventql_tpu", "eventql_tpu_torch", "chip_smoke"}
+    """Every reference file of BENCHMARK.json's cells and the fixtures',
+    found through their benchmark files."""
+    out = _run(LOAD_THE_REFERENCE)
+    assert not set(out["tops"]) & {"jax", "jaxlib", "flax", "eventql_tpu", "eventql_tpu_torch", "chip_smoke"}
+    found = {os.path.relpath(f, harness.HERE) for f in out["files"]}
+    assert {"reference/tpch_sf10_lineitem.py", "reference/clickbench_hits.py",
+            "tests/fixtures/two_tables/reference/facts_dims.py",
+            "tests/fixtures/two_tables/reference/facts_dims/join_mean.py"} <= found
 
 
 def test_names_are_compared_whole(monkeypatch):

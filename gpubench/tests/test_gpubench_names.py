@@ -1,6 +1,9 @@
 """BENCHMARK.json keeps to its format's rules: names, units and texts
 of the allowed characters and lengths, every entry's keys, and a file for
-every configuration, traffic mix and metric."""
+every configuration, traffic mix and metric. In it and in the test-only
+fixtures, every table and column a query reads is its configuration's,
+every query shape has one reference function, and every configuration
+keeps its test sizes."""
 
 import json
 import os
@@ -9,6 +12,7 @@ import re
 import pytest
 
 from gpubench import harness
+from gpubench.tests.tiny import BENCH_FILES
 
 NAME = re.compile(r"[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}")
 UNIT = re.compile(r"[A-Za-z0-9_/%.-]{1,16}")
@@ -75,10 +79,49 @@ def test_configs_cells_and_files(bench):
     for c in bench["configs"]:
         assert c["file"].startswith("gpubench/") and os.path.isfile(os.path.join(harness.ROOT, c["file"]))
         assert os.path.isfile(os.path.join(harness.ROOT, c["file"][: -len(".json")] + ".py"))
-        assert os.path.isfile(os.path.join(harness.HERE, "reference", c["name"] + ".py"))
         assert len(c["reduced"]) <= 16 and all(NAME.fullmatch(k) for k in c["reduced"])
         with open(os.path.join(harness.ROOT, c["file"])) as f:
             assert json.load(f)["reduced"] == c["reduced"]
+
+
+def _cells(bench_file):
+    """Every cell of a benchmark file, at its full sizes."""
+    return [harness.Cell(w["name"], bench=bench_file) for w in harness._json(bench_file)["workloads"]]
+
+
+@pytest.mark.parametrize("bench_file", BENCH_FILES)
+def test_reads_name_tables_and_columns_of_the_configuration(bench_file):
+    for cell in _cells(bench_file):
+        tables = {t: {c["name"] for c in cols} for t, cols in cell.config["tables"].items()}
+        for q in cell.traffic["queries"]:
+            if not isinstance(q["reads"], dict):
+                assert q["table"] in tables, q["shape"]
+            reads = harness.reads(q)
+            assert reads and set(reads) <= set(tables), q["shape"]
+            for t, cols in reads.items():
+                assert cols and set(cols) <= tables[t] and len(cols) == len(set(cols)), (q["shape"], t)
+
+
+@pytest.mark.parametrize("bench_file", BENCH_FILES)
+def test_every_shape_has_one_reference_function(bench_file):
+    root = os.path.dirname(bench_file)
+    bench = harness._json(bench_file)
+    for cell in _cells(bench_file):
+        stem = os.path.join(root, bench["paths"][0], "reference", cell.workload["config"])
+        common = harness._load(stem + ".py") if os.path.isfile(stem + ".py") else None
+        for q in cell.traffic["queries"]:
+            own = os.path.join(stem, q["shape"] + ".py")
+            homes = [hasattr(common, q["shape"]),
+                     os.path.isfile(own) and hasattr(harness._load(own), q["shape"])]
+            assert homes.count(True) == 1, (cell.workload["name"], q["shape"], homes)
+
+
+@pytest.mark.parametrize("bench_file", BENCH_FILES)
+def test_every_configuration_keeps_its_test_sizes(bench_file):
+    for cell in _cells(bench_file):
+        sizes = cell.config["test_sizes"]
+        assert sizes and all(isinstance(cell.config.get(k), int) and 0 < v <= cell.config[k]
+                             for k, v in sizes.items()), sizes
 
 
 def test_metrics(bench):
